@@ -5,16 +5,21 @@
 Phases, each of which fails the run (non-zero exit) when it fails:
 
 1. build: compile every CUDA kernel of the port from the sources in
-   this checkout;
+   this checkout, one nvcc per source, side by side;
 2. kernels: hold each kernel against its plain PyTorch version on the
    card at the shapes the serving path gives it (and in the regimes of
    the TPU kernels it replaces), and time kernel, plain version, and
-   one PyTorch library call of the same function as a yardstick;
+   one PyTorch library call of the same function as a yardstick. The
+   flash forward has two kernels: ``sm90`` (wgmma, bf16 at head_dim 64
+   and 128, the served path) and ``ffma`` (f32 and the other head
+   dims); both are held and timed, ``ffma`` also at the served bf16
+   shape, for the comparison;
 3. slice: start the port's full-width GPT-2s ``gpt_teacher`` on the
    card, send ``predict`` requests through the port's ``RpcClient``
    (some concurrent), check the replies, check that every layer's
-   attention went through the flash kernel, and check the served logits
-   against the same model run with dense attention.
+   attention went through the ``sm90`` kernel and none through
+   ``ffma``, and check the served logits against the same model run
+   with dense attention.
 
 Prints a ``kernels`` JSON line, the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``. Exits non-zero, printing no
@@ -78,12 +83,16 @@ def log(msg):
 
 
 def build(gpu):
-    """Phase 1: nvcc on the kernel source, with ptxas's register report."""
-    path, secs, text = fa.build()
-    log("build: %s in %.1fs [%s]" % (os.path.basename(path), secs, gpu))
-    for line in text.splitlines():
-        if "registers" in line or "spill" in line:
-            log("  " + line.strip())
+    """Phase 1: nvcc on each kernel source (side by side), with ptxas's
+    register report."""
+    t0 = time.monotonic()
+    for name, (path, secs, text) in fa.build().items():
+        log("build: %s %s in %.1fs [%s]" % (name, os.path.basename(path),
+                                             secs, gpu))
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line:
+                log("  " + line.strip())
+    log("build: both kernels in %.1fs of wall time" % (time.monotonic() - t0))
 
 
 def time_ms(fn, flush, reps):
@@ -116,10 +125,11 @@ def flash_bound_ms(b, h, s, sk, d, dtype, causal):
                                        else "operations")
 
 
-def flash_inputs(b, h, s, sk, d, dtype, gen):
-    """q [b, h, s, d] and k, v [b, h, sk, d] on the card, from ``gen``."""
+def flash_inputs(b, h, s, sk, d, dtype, gen, device="cuda"):
+    """q [b, h, s, d] and k, v [b, h, sk, d] on ``device`` (the card),
+    from ``gen``."""
     mk = lambda n, std: (torch.randn((b, h, n, d), generator=gen,
-                                     device="cuda") * std).to(dtype)
+                                     device=device) * std).to(dtype)
     return mk(s, Q_STD), mk(sk, 1.0), mk(sk, 1.0)
 
 
@@ -139,15 +149,22 @@ def check_flash(out, ref, dtype, case):
 
 
 def kernel_phase(gpu):
-    """Phase 2: flash kernel vs its plain version, timed."""
+    """Phase 2: both flash kernels vs their plain version, timed. A case
+    names its kernel: None for the one ``kernel_for`` picks, the way the
+    served path launches it, or "ffma" to run flash_fwd.cu on a shape
+    that the served path sends to sm90."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    cases = [  # (b, h, s, sk, d, dtype, causal, what)
+    cases = [  # (b, h, s, sk, d, dtype, causal, what, kernel)
         (MAX_BATCH, 12, 1024, 1024, 64, torch.bfloat16, True, "slice"),
         (MAX_BATCH, 12, 1024, 1024, 64, torch.bfloat16, False, "slice"),
         (MAX_BATCH, 12, 1024, 1024, 64, torch.float32, True, "f32"),
+        (MAX_BATCH, 12, 1024, 1024, 64, torch.bfloat16, True, "slice",
+         "ffma"),
+        (MAX_BATCH, 6, 1024, 1024, 128, torch.bfloat16, True, "d128"),
+        (MAX_BATCH, 6, 1024, 1024, 128, torch.bfloat16, False, "d128"),
         (MAX_BATCH, 12, 1000, 1000, 64, torch.bfloat16, True, "ragged sk"),
         (MAX_BATCH, 12, 1000, 1000, 64, torch.bfloat16, False, "ragged sk"),
         (MAX_BATCH, 12, 100, 1000, 64, torch.bfloat16, False, "sk != s"),
@@ -158,31 +175,38 @@ def kernel_phase(gpu):
         (1, 2, 16640, 16640, 64, torch.bfloat16, True, "K+V > 4 MiB"),
     ]
     results = []
-    for b, h, s, sk, d, dtype, causal, what in cases:
+    for b, h, s, sk, d, dtype, causal, what, *forced in cases:
+        kernel = forced[0] if forced else fa.kernel_for(dtype, d)
         q, k, v = flash_inputs(b, h, s, sk, d, dtype, gen)
-        out = fa.flash_attention(q, k, v, causal)
+        if forced:
+            run = lambda: fa._launch(q, k, v, causal, d ** -0.5, kernel)
+        else:
+            run = lambda: fa.flash_attention(q, k, v, causal)
+        out = run()
         torch.cuda.synchronize()
         ref = fa.blockwise_reference(q, k, v, causal, d ** -0.5)
-        err = check_flash(out, ref, dtype, (b, h, s, sk, d, dtype, causal))
+        err = check_flash(out, ref, dtype,
+                          (kernel, b, h, s, sk, d, dtype, causal))
         mean_ref = ref.float().abs().mean().item()
         reps = 20 if s <= 1024 else 5
-        ms = time_ms(lambda: fa.flash_attention(q, k, v, causal), flush,
-                     reps)
+        ms = time_ms(run, flush, reps)
         plain_ms = time_ms(lambda: fa.blockwise_reference(
             q, k, v, causal, d ** -0.5), flush, max(3, reps // 4))
         library_ms = time_ms(
             lambda: torch.nn.functional.scaled_dot_product_attention(
                 q, k, v, is_causal=causal), flush, reps)
         bound_ms, bound_by = flash_bound_ms(b, h, s, sk, d, dtype, causal)
-        row = dict(shape=[b, h, s, sk, d], dtype=str(dtype).split(".")[-1],
+        row = dict(kernel=kernel, shape=[b, h, s, sk, d],
+                   dtype=str(dtype).split(".")[-1],
                    causal=causal, what=what, max_abs_err=err,
                    mean_abs_out=mean_ref, ms=ms,
                    plain_ms=plain_ms, library_ms=library_ms,
                    bound_ms=bound_ms, bound_by=bound_by)
-        log("kernel flash_fwd b=%d h=%d s=%d sk=%d d=%d %s %s (%s): "
+        log("kernel flash_fwd %s b=%d h=%d s=%d sk=%d d=%d %s %s (%s): "
             "max_abs_err %.3g (tol %g + %g |ref|; mean |ref| %.3g); kernel "
             "%.4f ms, plain %.4f ms, sdpa %.4f ms, bound %.2f us (%s) [%s]"
-            % (b, h, s, sk, d, row["dtype"], "causal" if causal else "full",
+            % (kernel, b, h, s, sk, d, row["dtype"],
+               "causal" if causal else "full",
                what, err, *KERNEL_TOL[dtype], mean_ref, ms, plain_ms,
                library_ms, bound_ms * 1e3, bound_by, gpu))
         results.append(row)
@@ -216,7 +240,7 @@ def slice_phase(gpu):
             % (time.monotonic() - t0, gpu))
         stats0 = client.call("stats")
         # the main path: every count to 0 just before, read just after
-        fa.flash_attention.launches = 0
+        fa.reset_launches()
         latencies, replies, feeds = [], [], []
         t_all = time.monotonic()
         for rows in (2, 1):                      # sequential
@@ -233,16 +257,19 @@ def slice_phase(gpu):
             latencies.append(time.monotonic() - t0)
             feeds.append(f)
         wall = time.monotonic() - t_all
-        launches = fa.flash_attention.launches
+        launches = dict(fa.flash_attention.kernel_launches)
+        total = fa.flash_attention.launches
         stats = client.call("stats")
     finally:
         client.close()
         server.stop()
     batches = stats["batches"] - stats0["batches"]
     rows = stats["rows"] - stats0["rows"]
-    if launches != 12 * batches or batches < 1:
-        raise AssertionError("flash launches %d != 12 x %d device batches"
-                             % (launches, batches))
+    if batches < 1 or launches["sm90"] != 12 * batches \
+            or launches["ffma"] != 0 or total != 12 * batches:
+        raise AssertionError("flash launches %s (total %d) are not 12 sm90 "
+                             "and 0 ffma x %d device batches"
+                             % (launches, total, batches))
     for f, rep in zip(feeds, replies):
         n = len(f["input_ids"])
         for key in ("logits", "probs"):
@@ -257,9 +284,9 @@ def slice_phase(gpu):
             raise AssertionError("probs rows sum to %s" % sums)
     tokens = rows * seq
     log("slice: %d requests (%d rows) in %d device batches, flash "
-        "launches %d (12 per batch); latency per request %s s; %.1f "
-        "tokens/s; wall %.3fs [%s]"
-        % (len(replies), rows, batches, launches,
+        "launches sm90 %d, ffma %d (12 sm90 per batch); latency per "
+        "request %s s; %.1f tokens/s; wall %.3fs [%s]"
+        % (len(replies), rows, batches, launches["sm90"], launches["ffma"],
            ["%.3f" % x for x in latencies], tokens / wall, wall, gpu))
 
     # the served logits against the same weights with dense attention
@@ -324,7 +351,7 @@ def forward_breakdown(model, gpu):
     events = [e for e in prof.key_averages() if e.self_device_time_total]
     total_us = sum(e.self_device_time_total for e in events)
     flash_us = sum(e.self_device_time_total for e in events
-                   if "flash_fwd_kernel" in e.key)
+                   if "flash_fwd" in e.key)
     log("breakdown: forward of %d x %d tokens %.3f ms with flash, %.3f ms "
         "dense; forward + softmax + copy of logits and probs to host "
         "%.3f s [%s]" % (MAX_BATCH, seq, ms[True], ms[False], predict_s,
@@ -350,19 +377,24 @@ def main():
     build(gpu)
     kernel_rows = kernel_phase(gpu)
     launches = slice_phase(gpu)
-    main_row = kernel_rows[0]
-    kernels = [{
-        "name": "flash_fwd", "route": "cuda",
-        "source": "edl_tpu_torch/ops/csrc/flash_fwd.cu",
-        "replaces": "edl_tpu/ops/flash_attention.py:82",
-        "replaces_also": "edl_tpu/ops/flash_attention.py:30",
-        "launches": launches,
-        "max_abs_err": main_row["max_abs_err"], "ms": main_row["ms"],
-        "plain_ms": main_row["plain_ms"], "bound_ms": main_row["bound_ms"],
-        "bound_by": main_row["bound_by"],
-        "library_ms": main_row["library_ms"],
-        "shapes": kernel_rows,
-    }]
+    repo = os.path.dirname(os.path.abspath(__file__))
+    kernels = []
+    for name, source in fa.SOURCES.items():
+        # each kernel's numbers at the served shape (bf16 causal, d 64):
+        # the first case that ran it there
+        row = next(r for r in kernel_rows if r["kernel"] == name
+                   and r["what"] == "slice" and r["causal"])
+        kernels.append({
+            "name": "flash_fwd_" + name, "route": "cuda",
+            "source": os.path.relpath(source, repo),
+            "replaces": "edl_tpu/ops/flash_attention.py:82",
+            "replaces_also": "edl_tpu/ops/flash_attention.py:30",
+            "launches": launches[name],
+            "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+            "shapes": [r for r in kernel_rows if r["kernel"] == name],
+        })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(gpu, flush=True)
     print(json.dumps({"ok": True, "device": {

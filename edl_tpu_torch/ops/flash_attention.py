@@ -1,21 +1,27 @@
-"""Flash attention forward: a hand-written CUDA kernel and its plain
-PyTorch version.
+"""Flash attention forward: two hand-written CUDA kernels and their
+plain PyTorch version.
 
 The port's counterpart of ``edl_tpu/ops/flash_attention.py``. Exact
 attention that never materializes the [seq, seq] score matrix:
 
-- on a CUDA tensor, :func:`flash_attention` launches the kernel of
-  ``csrc/flash_fwd.cu`` (one thread block per (batch*head, 64-row q
-  tile), a loop over 64-row kv tiles in shared memory, f32 online
-  softmax), built with nvcc on first use and bound with ctypes;
+- on a CUDA tensor, :func:`flash_attention` launches one of two kernels,
+  chosen before launch by :func:`kernel_for` from the dtype and head_dim:
+  - ``sm90`` (``csrc/flash_fwd_sm90.cu``) for bf16 at head_dim 64 or
+    128, the served path: wgmma on the tensor cores, K/V tiles fed by
+    TMA into a ring of shared-memory slots, f32 online softmax, P·V as
+    two bf16 products (P's bf16 rounding and its remainder) so that it
+    keeps the f32 reference's accuracy;
+  - ``ffma`` (``csrc/flash_fwd.cu``) for float32 and the other head
+    dims (multiples of 8 up to 256): f32 FFMA on the CUDA cores;
+  each is built with nvcc on first use and bound with ctypes;
 - on a CPU tensor it runs :func:`blockwise_reference`, the port of the
   JAX package's ``_blockwise_reference`` (a loop over kv blocks with the
   same mask and online-softmax convention), which is also what the
-  tests and ``chip_smoke.py`` hold the kernel against.
+  tests and ``chip_smoke.py`` hold both kernels against.
 
-There is no fallback between the two: a CUDA tensor launches the kernel
-or raises. The backward is not ported yet (serving needs none), so
-asking for a gradient raises.
+There is no fallback between any of them: a CUDA tensor launches the
+kernel :func:`kernel_for` names or raises. The backward is not ported
+yet (serving needs none), so asking for a gradient raises.
 
 Layout: q, k, v are [batch, heads, seq, head_dim] (``mha`` takes the
 model code's [batch, seq, heads, head_dim]).
@@ -24,6 +30,7 @@ model code's [batch, seq, heads, head_dim]).
 import ctypes
 import os
 import threading
+from concurrent.futures import ThreadPoolExecutor
 
 import torch
 import torch.nn.functional as F
@@ -31,20 +38,34 @@ import torch.nn.functional as F
 from edl_tpu_torch.utils import buildlock
 
 _NEG_INF = -1e30
-_SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc",
-                       "flash_fwd.cu")
-#: head_dim the kernel takes: a multiple of 8 (16-byte bf16 rows), <= 256
+_CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
+_SOURCE = os.path.join(_CSRC, "flash_fwd.cu")
+_SOURCE_SM90 = os.path.join(_CSRC, "flash_fwd_sm90.cu")
+#: each kernel's source, by the name kernel_for gives it
+SOURCES = {"sm90": _SOURCE_SM90, "ffma": _SOURCE}
+#: head_dim the kernels take: a multiple of 8 (16-byte bf16 rows), <= 256
 HEAD_MULT = 8
 MAX_HEAD_DIM = 256
-_MAX_BH = 65535  # gridDim.y
+#: head_dim the sm90 kernel takes (bf16 only)
+SM90_HEAD_DIMS = (64, 128)
+_MAX_BH = 65535  # gridDim.y of the ffma kernel
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-_lib = None
+_lib = None        # flash_fwd.cu's library
+_lib_sm90 = None   # flash_fwd_sm90.cu's library
 _lib_lock = threading.Lock()
 
 
+def kernel_for(dtype, head_dim):
+    """The kernel a CUDA launch takes: ``"sm90"`` for bf16 at head_dim
+    64 or 128, ``"ffma"`` for everything else the wrapper accepts."""
+    if dtype == torch.bfloat16 and head_dim in SM90_HEAD_DIMS:
+        return "sm90"
+    return "ffma"
+
+
 def bind(lib):
-    """Declare the C entry points' types on a loaded kernel library."""
+    """Declare flash_fwd.cu's C entry points' types on its library."""
     p = ctypes.c_void_p
     lib.edl_flash_fwd.argtypes = [
         p, p, p, p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
@@ -55,21 +76,44 @@ def bind(lib):
     return lib
 
 
-def _kernel_lib():
-    """The built kernel library (nvcc on first use, under a file lock)."""
-    global _lib
+def bind_sm90(lib):
+    """Declare flash_fwd_sm90.cu's C entry points' types on its
+    library."""
+    p = ctypes.c_void_p
+    lib.edl_flash_fwd_sm90.argtypes = [
+        p, p, p, p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_float, ctypes.c_int, p]
+    lib.edl_flash_fwd_sm90.restype = ctypes.c_int
+    lib.edl_flash_sm90_error_string.argtypes = [ctypes.c_int]
+    lib.edl_flash_sm90_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _kernel_lib(kernel="ffma"):
+    """The built library of ``kernel`` (nvcc on first use, under a file
+    lock)."""
+    global _lib, _lib_sm90
     with _lib_lock:
+        if kernel == "sm90":
+            if _lib_sm90 is None:
+                _lib_sm90 = bind_sm90(buildlock.load(_SOURCE_SM90))
+            return _lib_sm90
         if _lib is None:
             _lib = bind(buildlock.load(_SOURCE))
         return _lib
 
 
 def build():
-    """Build (if needed) and load the kernel; returns nvcc's
-    ``(path, seconds, log)`` for the build report."""
-    report = buildlock.build(_SOURCE)
-    _kernel_lib()
-    return report
+    """Build (if needed) and load both kernels, one nvcc each, side by
+    side; returns ``{kernel: (path, seconds, log)}`` for the build
+    report."""
+    with ThreadPoolExecutor(len(SOURCES)) as pool:
+        futures = {name: pool.submit(buildlock.build, src)
+                   for name, src in SOURCES.items()}
+        reports = {name: f.result() for name, f in futures.items()}
+    for name in SOURCES:
+        _kernel_lib(name)
+    return reports
 
 
 def _block_layout(k, v, block_k):
@@ -138,9 +182,10 @@ def _check(q, k, v):
                          % (q.dtype, k.dtype, v.dtype))
 
 
-def _launch(q, k, v, causal, sm_scale):
-    """Launch the CUDA kernel on the current stream; raises on anything
-    it does not take."""
+def _launch(q, k, v, causal, sm_scale, kernel=None):
+    """Launch a CUDA kernel on the current stream: ``kernel`` ("sm90" or
+    "ffma"), by default the one :func:`kernel_for` picks. Raises on
+    anything that kernel does not take."""
     b, h, s, d = q.shape
     sk = k.shape[2]
     if q.dtype not in _DTYPES:
@@ -160,26 +205,38 @@ def _launch(q, k, v, causal, sm_scale):
         if t.data_ptr() % 16:
             raise ValueError("flash kernel takes 16-byte aligned tensors; "
                              "%s is not" % name)
-    lib = _kernel_lib()
+    kernel = kernel or kernel_for(q.dtype, d)
+    if kernel == "sm90" and kernel_for(q.dtype, d) != "sm90":
+        raise ValueError("the sm90 flash kernel takes bfloat16 at head_dim "
+                         "%s, got %s at %d" % (SM90_HEAD_DIMS, q.dtype, d))
+    if kernel not in SOURCES:
+        raise ValueError("no flash kernel %r" % (kernel,))
+    lib = _kernel_lib(kernel)
     out = torch.empty_like(q)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            b * h, s, sk, d, float(sm_scale), int(bool(causal)))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.edl_flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                out.data_ptr(), b * h, s, sk, d,
-                                float(sm_scale), int(bool(causal)),
-                                _DTYPES[q.dtype], stream)
+        if kernel == "sm90":
+            err = lib.edl_flash_fwd_sm90(*args, stream)
+            what = lib.edl_flash_sm90_error_string
+        else:
+            err = lib.edl_flash_fwd(*args, _DTYPES[q.dtype], stream)
+            what = lib.edl_flash_error_string
     if err != 0:
-        raise RuntimeError("flash kernel launch failed: CUDA error %d (%s)"
-                           % (err, lib.edl_flash_error_string(err).decode()))
+        raise RuntimeError("flash kernel %s launch failed: error %d (%s)"
+                           % (kernel, err, what(err).decode()))
     flash_attention.launches += 1
+    flash_attention.kernel_launches[kernel] += 1
     return out
 
 
 def flash_attention(q, k, v, causal=False, sm_scale=None):
     """Blockwise exact attention; q/k/v/out are [batch, heads, seq, dim].
 
-    CUDA tensors run the kernel, CPU tensors its plain version. The
-    causal diagonal is anchored at position 0 (row i sees keys 0..i)."""
+    CUDA tensors run the kernel :func:`kernel_for` names, CPU tensors
+    the plain version. The causal diagonal is anchored at position 0
+    (row i sees keys 0..i)."""
     _check(q, k, v)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         raise NotImplementedError(
@@ -195,8 +252,17 @@ def flash_attention(q, k, v, causal=False, sm_scale=None):
     return _launch(q, k, v, causal, sm_scale)
 
 
-#: kernel launches since the last reset (the main path's proof of use)
+#: kernel launches since the last reset (the main path's proof of use):
+#: the total, and by kernel
 flash_attention.launches = 0
+flash_attention.kernel_launches = {"sm90": 0, "ffma": 0}
+
+
+def reset_launches():
+    """Set every launch count to 0."""
+    flash_attention.launches = 0
+    for name in flash_attention.kernel_launches:
+        flash_attention.kernel_launches[name] = 0
 
 
 def mha(q, k, v, causal=False, sm_scale=None):

@@ -2,18 +2,21 @@
 
 Each kernel source under ``ops/csrc`` compiles with ``nvcc`` into a
 shared library with a plain C interface, loaded with ``ctypes``. The
-library's file name carries a hash of the source and the flags, so an
-edited source rebuilds and an unchanged one is reused. An exclusive
-flock on the build directory's lockfile serializes concurrent builders
-(processes of one host starting together): the losers find the library
-already there. Nothing builds at import time; callers build on first
-use.
+library's file name carries a hash of the source, of every file it
+includes with ``#include "..."`` (found beside the including file), and
+of the flags, so an edited source or header rebuilds and an unchanged
+one is reused. An exclusive flock on a lockfile of the library's own
+serializes concurrent builders of one library (processes of one host
+starting together): the losers find the library already there. Two
+libraries build side by side. Nothing builds at import time; callers
+build on first use.
 """
 
 import ctypes
 import fcntl
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -36,11 +39,35 @@ def _nvcc():
                        "the CUDA toolkit's nvcc (PATH or /usr/local/cuda)")
 
 
+_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.M)
+
+
+def _inputs(source):
+    """``source`` and, recursively, the files it includes with quotes
+    that exist beside the including file, each once, in the order met."""
+    found, todo = [], [os.path.abspath(source)]
+    while todo:
+        path = todo.pop(0)
+        if path in found:
+            continue
+        found.append(path)
+        with open(path, "rb") as f:
+            names = _INCLUDE.findall(f.read())
+        for name in names:
+            dep = os.path.join(os.path.dirname(path), name.decode())
+            if os.path.exists(dep):
+                todo.append(os.path.abspath(dep))
+    return found
+
+
 def library_path(source, build_dir=None):
     """The content-keyed path of ``source``'s built library in
-    ``build_dir`` (default ``BUILD_DIR``)."""
-    with open(source, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    ``build_dir`` (default ``BUILD_DIR``): the key covers the source,
+    the headers it includes and the nvcc flags."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in _inputs(source):
+        with open(path, "rb") as f:
+            digest.update(os.path.basename(path).encode() + b"\0" + f.read())
     name = os.path.splitext(os.path.basename(source))[0]
     return os.path.join(build_dir or BUILD_DIR, "lib%s_%s.so" % (
         name, digest.hexdigest()[:16]))
@@ -54,7 +81,8 @@ def build(source, build_dir=None):
     build_dir = build_dir or BUILD_DIR
     out = library_path(source, build_dir)
     os.makedirs(build_dir, exist_ok=True)
-    with open(os.path.join(build_dir, ".build.lock"), "w") as lock:
+    name = os.path.splitext(os.path.basename(source))[0]
+    with open(os.path.join(build_dir, ".%s.lock" % name), "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
         try:
             if os.path.exists(out):
