@@ -13,9 +13,13 @@ single device thread coalesces queued requests from any client into one
 device batch, copying rows into a reused staging buffer and scattering
 row slices of the output back to each waiter.
 
+With a decode engine (``decode_engine=``, as :func:`lm_teacher` builds
+it) the server also serves the autoregressive plane: ``lm_generate``,
+``lm_submit`` and ``lm_poll`` (serve/decode_engine.py).
+
 The model builders run on CUDA unless the caller passes
-``device="cpu"``. ``gpt_teacher`` is the ported one; ``lm_teacher`` (the
-decode engine) and the ResNet teachers come with later slices.
+``device="cpu"``. ``gpt_teacher`` and ``lm_teacher`` are ported; the
+ResNet teachers come with a later slice.
 """
 
 import argparse
@@ -26,7 +30,6 @@ import time
 
 import numpy as np
 import torch
-from torch.func import functional_call
 
 from edl_tpu_torch.models import gpt
 from edl_tpu_torch.obs import metrics as obs_metrics
@@ -37,6 +40,7 @@ from edl_tpu_torch.rpc import ndarray as nd
 from edl_tpu_torch.rpc.server import FEATURES as _RPC_FEATURES
 from edl_tpu_torch.rpc.server import RpcServer
 from edl_tpu_torch.serve.admission import AdmissionController
+from edl_tpu_torch.serve.decode_engine import DecodeEngine
 from edl_tpu_torch.utils import errors
 from edl_tpu_torch.utils.device import resolve_device
 from edl_tpu_torch.utils.logger import logger
@@ -111,8 +115,13 @@ class TeacherServer(object):
 
     def __init__(self, predict_fn, feed_specs, fetch_specs, max_batch=128,
                  host="0.0.0.0", port=0, adaptive_batch=True,
-                 batch_timeout_ms=0.0, admission=None):
+                 batch_timeout_ms=0.0, admission=None,
+                 decode_engine=None):
         self._fn = predict_fn
+        # optional autoregressive plane (serve/decode_engine.py): adds
+        # the lm_generate / lm_submit / lm_poll RPCs, folds engine
+        # stats into stats(), and joins the drain protocol
+        self._decode = decode_engine
         # admission control (serve/admission.py): None/True builds the
         # default controller (bounded queue only — no rate limit, no
         # projection shed until configured, so plain fleets behave as
@@ -145,6 +154,10 @@ class TeacherServer(object):
         self._rpc.register("stats", self.stats)
         self._rpc.register("set_knobs", self.apply_knobs)
         self._rpc.register("drain", self.drain)
+        if self._decode is not None:
+            self._rpc.register("lm_generate", self._lm_generate_rpc)
+            self._rpc.register("lm_submit", self._lm_submit_rpc)
+            self._rpc.register("lm_poll", self._lm_poll_rpc)
 
     def get_feed_fetch(self):
         features = list(_RPC_FEATURES)
@@ -152,9 +165,65 @@ class TeacherServer(object):
             features.append("adaptive_batch")
         if self._admission is not None:
             features.append("serve.admission")
-        return {"feed": self._feed_specs, "fetch": self._fetch_specs,
-                "max_batch": self._max_batch, "features": features,
-                "batch_timeout_ms": self._batch_timeout * 1000.0}
+        out = {"feed": self._feed_specs, "fetch": self._fetch_specs,
+               "max_batch": self._max_batch, "features": features,
+               "batch_timeout_ms": self._batch_timeout * 1000.0}
+        if self._decode is not None:
+            features.append("decode.engine")
+            out.update(self.decode_capacities())
+        return out
+
+    def decode_capacities(self):
+        """Phase-disaggregated capacity weights for the balance table
+        (distill/balance.py): ``capacity_prefill`` — how many one-shot
+        forwards this server absorbs per scheduling quantum (the batch
+        plane, same meaning as ``capacity``) — and ``capacity_decode`` —
+        resident-sequence capacity, bounded by KV slots. Pass through
+        ``TeacherRegister(info=...)`` so prefill-heavy and decode-heavy
+        clients hash against the capacity that actually limits them.
+
+        ``capacity_prefill`` is REUSE-ADJUSTED: a server whose prefix
+        cache absorbs fraction f of prompt tokens does only (1-f) of
+        the prefill work per nominal request, so it advertises
+        1/(1-f) x the raw capacity (capped at 10x — a pathological
+        reuse_frac must not zero out the denominator)."""
+        if self._decode is None:
+            return {}
+        prefill = float(self._max_batch)
+        try:
+            pfx = self._decode.stats().get("decode_prefix") or {}
+            if pfx.get("enabled"):
+                reuse = min(0.9, max(0.0,
+                                     float(pfx.get("reuse_frac") or 0.0)))
+                prefill /= (1.0 - reuse)
+        except Exception:  # noqa: BLE001 — capacity ad stays best-effort
+            pass
+        return {"capacity_prefill": prefill,
+                "capacity_decode": float(self._decode.slots)}
+
+    # -- the autoregressive plane (serve/decode_engine.py) -----------------
+
+    def _lm_generate_rpc(self, prompt, max_new_tokens, deadline_ms=None):
+        """Blocking generate: admit (or typed OverloadedError), decode
+        to completion, return the report (tokens include the prompt).
+        Ships on the pipelined plane — call_async keeps many sequences
+        in flight per connection while each handler thread parks on its
+        sequence future."""
+        report = self._decode.generate(prompt, max_new_tokens,
+                                       deadline_ms=deadline_ms,
+                                       timeout=600.0)
+        return report
+
+    def _lm_submit_rpc(self, prompt, max_new_tokens, deadline_ms=None):
+        h = self._decode.submit(prompt, max_new_tokens,
+                                deadline_ms=deadline_ms)
+        return {"seq": h.seq_id}
+
+    def _lm_poll_rpc(self, seq, start=0):
+        """Token streaming: tokens generated since ``start`` + done flag
+        (raises the sequence's typed error once failed)."""
+        tokens, done = self._decode.handle(seq).tokens_from(start)
+        return {"tokens": tokens, "done": done}
 
     def apply_knobs(self, knobs):
         """Runtime tuning surface (``set_knobs`` RPC — the same contract
@@ -197,6 +266,8 @@ class TeacherServer(object):
         }
         if self._admission is not None:
             out.update(self._admission.stats())
+        if self._decode is not None:
+            out.update(self._decode.stats())
         return obs_metrics.mirror_stats("edl_teacher", out)
 
     def drain(self, deadline_s=30.0):
@@ -213,6 +284,11 @@ class TeacherServer(object):
                               pending=self._queue.qsize())
         if self._admission is not None:
             self._admission.set_draining(True)
+        if self._decode is not None:
+            # flip the decode front door too, then let BOTH planes
+            # finish their in-flight work: resident sequences decode to
+            # completion, waiting ones still get slots — zero stranded
+            self._decode.admission.set_draining(True)
         deadline = Deadline(deadline_s if deadline_s else 30.0)
         served_before = self._rows
         while not self._drained():
@@ -231,6 +307,10 @@ class TeacherServer(object):
     def _drained(self):
         if self._adaptive and self._queue.qsize() > 0:
             return False
+        if self._decode is not None:
+            st = self._decode.stats()
+            if st["decode_waiting"] or st["decode_active"]:
+                return False
         return self._admission is None or self._admission.idle()
 
     def _validate(self, feed):
@@ -456,6 +536,8 @@ class TeacherServer(object):
                 target=self._device_loop, daemon=True,
                 name="teacher-device")
             self._device_thread.start()
+        if self._decode is not None and not self._decode.running:
+            self._decode.start()
         self._rpc.start()
         logger.info("teacher serving on %s (max_batch=%d, adaptive=%s)",
                     self._rpc.endpoint, self._max_batch, self._adaptive)
@@ -464,6 +546,11 @@ class TeacherServer(object):
     @property
     def endpoint(self):
         return self._rpc.endpoint
+
+    @property
+    def decode_engine(self):
+        """The autoregressive plane's engine, or None."""
+        return self._decode
 
     @property
     def port(self):
@@ -475,6 +562,8 @@ class TeacherServer(object):
             self._stop_ev.set()
             self._device_thread.join(timeout=5)
             self._device_thread = None
+        if self._decode is not None:
+            self._decode.stop()
 
 
 def nop_teacher(fetch_specs, max_batch=128, host="0.0.0.0", port=0,
@@ -493,6 +582,47 @@ def nop_teacher(fetch_specs, max_batch=128, host="0.0.0.0", port=0,
                          **kwargs)
 
 
+def _gpt_state(device, params, quantize, **size):
+    """(model, state) of a ``Gpt`` teacher on ``device``: the weights
+    from a flax ``params`` tree or, when None, random from
+    ``INIT_SEED``; quantized when ``quantize`` is set. The module keeps
+    only its structure (on ``meta``): ``state`` holds the weights."""
+    model = gpt.Gpt(device=device, **size)
+    if params is None:
+        model.init_weights(
+            torch.Generator(device=device).manual_seed(INIT_SEED))
+    else:
+        model.load_state_dict(gpt.params_from_flax(params))
+    state = {k: v.detach() for k, v in model.state_dict().items()}
+    if quantize is not None:
+        state = quant.quantize_tree(state, quantize)
+    model.to("meta")
+    return model, state
+
+
+def _predict_fn(model, state, vocab_size, device):
+    """``predict(feed)``: per-position logits and probs of
+    ``feed["input_ids"]``, refusing ids outside ``[0, vocab_size)``
+    (on CUDA an out-of-range gather is a fatal device assert)."""
+
+    def predict(feed):
+        # np.array copies: the feed may be a view of a staging buffer
+        # that the next batch overwrites
+        ids = np.array(feed["input_ids"], np.int64)
+        if ids.size and (ids.min() < 0 or ids.max() >= vocab_size):
+            raise errors.FeedSpecError(
+                "input_ids outside [0, %d)" % vocab_size,
+                spec="input_ids", shape=ids.shape)
+        with torch.no_grad():
+            ids = torch.from_numpy(ids).to(device)
+            logits = gpt.apply(model, state, ids)
+            probs = torch.softmax(logits, dim=-1)
+            return {"logits": logits.cpu().numpy(),
+                    "probs": probs.cpu().numpy()}
+
+    return predict
+
+
 def gpt_teacher(num_layers=2, d_model=64, num_heads=4, mlp_dim=128,
                 vocab_size=256, seq_len=32, max_batch=64, host="0.0.0.0",
                 port=0, params=None, quantize=None, device=None, **kwargs):
@@ -509,50 +639,56 @@ def gpt_teacher(num_layers=2, d_model=64, num_heads=4, mlp_dim=128,
     stays in device memory. ``device``: None means CUDA (raises without
     a card); pass "cpu" to run on the CPU."""
     device = resolve_device(device)
-    model = gpt.Gpt(num_layers=num_layers, d_model=d_model,
-                    num_heads=num_heads, mlp_dim=mlp_dim,
-                    vocab_size=vocab_size, max_len=max(seq_len, 16),
-                    dtype=torch.bfloat16, device=device)
-    if params is None:
-        model.init_weights(
-            torch.Generator(device=device).manual_seed(INIT_SEED))
-    else:
-        model.load_state_dict(gpt.params_from_flax(params))
-    state = {k: v.detach() for k, v in model.state_dict().items()}
-    if quantize is not None:
-        state = quant.quantize_tree(state, quantize)
-    # the module keeps only its structure: ``state`` holds the weights
-    model.to("meta")
-
-    def predict(feed):
-        # np.array copies: the feed may be a view of a staging buffer
-        # that the next batch overwrites
-        ids = np.array(feed["input_ids"], np.int64)
-        if ids.size and (ids.min() < 0 or ids.max() >= vocab_size):
-            raise errors.FeedSpecError(
-                "input_ids outside [0, %d)" % vocab_size,
-                spec="input_ids", shape=ids.shape)
-        with torch.inference_mode():
-            ids = torch.from_numpy(ids).to(device)
-            logits = functional_call(model, quant.dequantize_tree(state),
-                                     (ids,))
-            probs = torch.softmax(logits, dim=-1)
-            return {"logits": logits.cpu().numpy(),
-                    "probs": probs.cpu().numpy()}
-
+    model, state = _gpt_state(
+        device, params, quantize, num_layers=num_layers, d_model=d_model,
+        num_heads=num_heads, mlp_dim=mlp_dim, vocab_size=vocab_size,
+        max_len=max(seq_len, 16), dtype=torch.bfloat16)
     return TeacherServer(
-        predict,
+        _predict_fn(model, state, vocab_size, device),
         feed_specs={"input_ids": ([seq_len], "<i4")},
         fetch_specs={"logits": ([seq_len, vocab_size], "<f4"),
                      "probs": ([seq_len, vocab_size], "<f4")},
         max_batch=max_batch, host=host, port=port, **kwargs)
 
 
+def lm_teacher(num_layers=2, d_model=64, num_heads=4, mlp_dim=128,
+               vocab_size=256, max_len=128, slots=8, max_batch=16,
+               host="0.0.0.0", port=0, params=None, quantize=None,
+               decode_admission=None, device=None, **kwargs):
+    """An autoregressive LM teacher: the one-shot per-position logits
+    plane of :func:`gpt_teacher` PLUS the continuous-batching decode
+    engine (serve/decode_engine.py) behind ``lm_generate`` /
+    ``lm_submit`` / ``lm_poll``. Prefill-heavy clients use ``predict``;
+    decode-heavy ones hold KV slots — the two capacities are advertised
+    separately (``decode_capacities``) so the balance table can
+    disaggregate the phases. ``quantize`` (None|"int8"|"bf16") applies
+    to BOTH planes from one shared quantized state. ``params`` and
+    ``device`` as for :func:`gpt_teacher`; the engine's KV cache lives
+    on ``device`` too (``slots`` rows of ``max_len``)."""
+    device = resolve_device(device)
+    # the decode path runs f32: greedy sampling is held token-identical
+    # to models.gpt.generate, which bf16 activations would break
+    model, state = _gpt_state(
+        device, params, quantize, num_layers=num_layers, d_model=d_model,
+        num_heads=num_heads, mlp_dim=mlp_dim, vocab_size=vocab_size,
+        max_len=max_len, dtype=torch.float32)
+    engine = DecodeEngine(model, state, slots=slots,
+                          admission=decode_admission)
+    return TeacherServer(
+        _predict_fn(model, state, vocab_size, device),
+        feed_specs={"input_ids": ([max_len], "<i4")},
+        fetch_specs={"logits": ([max_len, vocab_size], "<f4"),
+                     "probs": ([max_len, vocab_size], "<f4")},
+        max_batch=max_batch, host=host, port=port,
+        decode_engine=engine, **kwargs)
+
+
 def main():
     p = argparse.ArgumentParser("edl_tpu_torch teacher server")
     p.add_argument("--model", default="nop", choices=["nop", "gpt"],
                    help="nop: zeros; gpt: the causal-LM teacher. The "
-                   "resnet/resnext and lm teachers are not ported yet")
+                   "resnet/resnext teachers are not ported yet; "
+                   "lm_teacher is Python-API-only, as in edl_tpu")
     p.add_argument("--port", type=int, default=0)
     p.add_argument("--device", default=None,
                    help="torch device for the model (default: cuda)")

@@ -1,11 +1,29 @@
 """GPT decoder family: the causal LM of ``edl_tpu/models/gpt.py``, ported
-to PyTorch on its full-sequence path.
+to PyTorch, with its KV-cache paths.
 
 A pre-LN decoder-only transformer with a weight-tied LM head. Attention
 goes through :func:`edl_tpu_torch.ops.attention.attention_context`,
 which auto-dispatches to the CUDA flash kernel on kernel-legal shapes.
-The incremental-decode, offset-prefill and ``generate`` paths come with
-the ``lm_teacher`` slice.
+
+Three cache modes serve incremental decoding (``generate`` and the
+decode engine of ``serve/decode_engine.py``):
+
+- ``prefill=True``: one causal forward over the whole prompt that also
+  writes its K/V into the cache at ``[0, s)`` (flash where legal);
+- ``prefill=True, prefill_offset=off``: a chunk of the prompt whose
+  first token sits at ``off`` writes its K/V at ``[off, off + s)`` and
+  attends the cache under the shifted causal mask (dense);
+- ``decode=True``: one token per row at ``decode_index`` (a scalar for
+  every row, or a ``[b]`` vector, one position per row), written into
+  the cache and attended against it (dense).
+
+The flax ``"cache"`` collection becomes explicit tensors: a cache is a
+dict ``{"block_i.attention.k": [b, max_len, heads, head_dim], ...v}``
+in the model dtype (:func:`init_cache`), named by flax's path, and the
+forward UPDATES IT IN PLACE where JAX returned a new one. Positions
+are host values (ints or numpy arrays) and are checked against
+``max_len``: where ``jax.lax.dynamic_update_slice`` clamps a start that
+would overrun, the port raises.
 
 Numerics follow the JAX package (flax ``linen``) so that one set of
 weights gives the same logits in both:
@@ -29,7 +47,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.func import functional_call
 
+from edl_tpu_torch.ops import quant
 from edl_tpu_torch.ops.attention import attention_context
 from edl_tpu_torch.utils.device import resolve_device
 
@@ -103,10 +123,13 @@ def _normal_(param, std, generator):
 
 
 class CausalSelfAttention(nn.Module):
-    """Causal multi-head self-attention on the full sequence.
+    """Causal multi-head self-attention, with the cache modes of the
+    module docstring.
 
     ``use_flash``: None = auto-dispatch (the CUDA flash kernel where
-    legal), True/False force a path."""
+    legal), True/False force a path. Only the full-sequence and the
+    offset-0 prefill paths dispatch; offset chunks and decode steps are
+    dense, as in the JAX package."""
 
     def __init__(self, d_model, num_heads, dtype, use_flash, device):
         super().__init__()
@@ -121,10 +144,56 @@ class CausalSelfAttention(nn.Module):
         self.out = DenseGeneral((num_heads, head_dim), (d_model,), dtype,
                                 device)
 
-    def forward(self, x):
-        ctx = attention_context(self.query(x), self.key(x), self.value(x),
-                                causal=True, mask=None, dtype=self.dtype,
-                                use_flash=self.use_flash)
+    def forward(self, x, cache=None, decode=False, decode_index=None,
+                prefill=False, prefill_offset=None):
+        """``cache`` is this block's ``(k, v)`` pair, updated in place;
+        ``decode_index`` and ``prefill_offset`` come checked from
+        :meth:`Gpt.forward` (an int, or a [b] tensor of positions)."""
+        q, k, v = self.query(x), self.key(x), self.value(x)
+        if prefill and prefill_offset is None:
+            ck, cv = cache
+            s = x.shape[1]
+            ck[:, :s] = k
+            cv[:, :s] = v
+            ctx = attention_context(q, k, v, causal=True, mask=None,
+                                    dtype=self.dtype,
+                                    use_flash=self.use_flash)
+        elif prefill or decode:
+            ck, cv = cache
+            key_pos = torch.arange(ck.shape[1], device=x.device)
+            if prefill:
+                # chunk row i sees keys [0, off + i]: the prefix already
+                # written plus its own chunk's prefix; junk beyond is
+                # never attended
+                off, s = prefill_offset, x.shape[1]
+                ck[:, off:off + s] = k
+                cv[:, off:off + s] = v
+                q_pos = off + torch.arange(s, device=x.device)
+                mask = key_pos[None, None, None, :] <= q_pos[None, None, :,
+                                                             None]
+            elif isinstance(decode_index, int):
+                ck[:, decode_index] = k[:, 0]
+                cv[:, decode_index] = v[:, 0]
+                mask = key_pos[None, None, None, :] <= decode_index
+            else:
+                # one position per row (the slot layout of the decode
+                # engine): a per-row write and a per-row prefix mask
+                rows = torch.arange(x.shape[0], device=x.device)
+                ck[rows, decode_index] = k[:, 0]
+                cv[rows, decode_index] = v[:, 0]
+                mask = (key_pos[None, None, None, :]
+                        <= decode_index[:, None, None, None])
+            # the JAX package's dense masked path: f32 scores, -1e30 mask
+            scale = q.shape[-1] ** -0.5
+            scores = torch.einsum("bqhd,bkhd->bhqk", (q * scale).float(),
+                                  ck.float())
+            probs = torch.softmax(torch.where(mask, scores, -1e30), dim=-1)
+            ctx = torch.einsum("bhqk,bkhd->bqhd", probs,
+                               cv.float()).to(self.dtype)
+        else:
+            ctx = attention_context(q, k, v, causal=True, mask=None,
+                                    dtype=self.dtype,
+                                    use_flash=self.use_flash)
         return self.out(ctx)
 
 
@@ -141,8 +210,8 @@ class GptBlock(nn.Module):
         self.mlp_up = DenseGeneral((d_model,), (mlp_dim,), dtype, device)
         self.mlp_down = DenseGeneral((mlp_dim,), (d_model,), dtype, device)
 
-    def forward(self, x):
-        x = x + self.attention(self.ln_attn(x))
+    def forward(self, x, **cache_kw):
+        x = x + self.attention(self.ln_attn(x), **cache_kw)
         h = F.gelu(self.mlp_up(self.ln_mlp(x)), approximate="tanh")
         return x + self.mlp_down(h)
 
@@ -163,6 +232,8 @@ class Gpt(nn.Module):
         super().__init__()
         device = resolve_device(device)
         self.dtype, self.max_len, self.num_layers = dtype, max_len, num_layers
+        self.vocab_size, self.num_heads = vocab_size, num_heads
+        self.head_dim = d_model // num_heads
         self.word_embed = Embed(vocab_size, d_model, device)
         self.pos_embed = Embed(max_len, d_model, device)
         for i in range(num_layers):
@@ -179,19 +250,200 @@ class Gpt(nn.Module):
                 module.init_weights(generator)
         return self
 
-    def forward(self, input_ids):
-        s = input_ids.shape[1]
-        if s > self.max_len:
-            raise ValueError("sequence %d exceeds max_len %d"
-                             % (s, self.max_len))
+    def forward(self, input_ids, cache=None, decode=False,
+                decode_index=None, prefill=False, prefill_offset=None):
+        """Logits [b, s, vocab] in f32. ``decode``/``prefill`` need a
+        ``cache`` (:func:`init_cache`), which they update in place."""
+        b, s = input_ids.shape
+        device = input_ids.device
+        if (decode or prefill) and cache is None:
+            raise ValueError("decode and prefill need a cache "
+                             "(models.gpt.init_cache)")
+        if decode:
+            if s != 1:
+                raise ValueError("decode mode feeds one token at a time")
+            if decode_index is None:
+                raise ValueError("decode mode needs decode_index")
+            decode_index = _position(decode_index, 1, self.max_len,
+                                     "decode_index")
+            if isinstance(decode_index, int):
+                pos = torch.full((1, 1), decode_index, device=device)
+            else:
+                if decode_index.shape != (b,):
+                    raise ValueError(
+                        "vector decode_index must be [batch]=%d, got %s"
+                        % (b, tuple(decode_index.shape)))
+                decode_index = decode_index.to(device)
+                pos = decode_index[:, None]
+        else:
+            off = 0
+            if prefill and prefill_offset is not None:
+                prefill_offset = off = _position(prefill_offset, s,
+                                                 self.max_len,
+                                                 "prefill_offset")
+            elif s > self.max_len:
+                raise ValueError("sequence %d exceeds max_len %d"
+                                 % (s, self.max_len))
+            pos = off + torch.arange(s, device=device)[None]
         x = self.word_embed.embedding[input_ids].to(self.dtype)
-        pos = torch.arange(s, device=input_ids.device)
-        x = x + self.pos_embed.embedding.to(self.dtype)[pos][None]
+        x = x + self.pos_embed.embedding.to(self.dtype)[pos]
+        kw = dict(decode=decode, decode_index=decode_index, prefill=prefill,
+                  prefill_offset=prefill_offset)
         for i in range(self.num_layers):
-            x = getattr(self, "block_%d" % i)(x)
+            name = "block_%d" % i
+            if cache is not None:
+                kw["cache"] = (cache[name + ".attention.k"],
+                               cache[name + ".attention.v"])
+            x = getattr(self, name)(x, **kw)
         x = self.ln_final(x)
         # weight-tied LM head in f32
         return x.float() @ self.word_embed.embedding.float().t()
+
+
+def _position(value, span, max_len, what):
+    """A host position (int, or numpy/CPU-tensor vector) checked so that
+    ``[value, value + span)`` lies in ``[0, max_len)``: an int, or a
+    [b] int64 CPU tensor."""
+    if isinstance(value, torch.Tensor):
+        if value.device.type != "cpu":
+            raise TypeError("%s must be a host value (int, numpy, or a CPU "
+                            "tensor), not a %s tensor" % (what, value.device))
+        value = value.numpy()
+    arr = np.asarray(value)
+    if arr.dtype.kind not in "iu":
+        raise TypeError("%s must be integer, got %s" % (what, arr.dtype))
+    if arr.size and (arr.min() < 0 or arr.max() + span > max_len):
+        raise ValueError("%s %s with span %d overruns max_len %d"
+                         % (what, arr.tolist(), span, max_len))
+    if arr.ndim == 0:
+        return int(arr)
+    return torch.from_numpy(arr.astype(np.int64))
+
+
+def _state_device(params):
+    """Device of a (possibly quantized) state dict's first tensor."""
+    for leaf in params.values():
+        if isinstance(leaf, quant.QTensor):
+            leaf = leaf.values
+        return leaf.device
+    raise ValueError("empty state")
+
+
+def init_cache(model, params, batch_size):
+    """Zeroed KV caches for incremental decode: ``{"block_i.attention.k"
+    and ".v": [batch_size, max_len, heads, head_dim]}`` in the model
+    dtype, on the device of ``params`` (a state dict), or of the model's
+    own parameters when ``params`` is None.
+
+    The tensors are made outside inference mode, so that the decode
+    paths (which run under ``torch.no_grad()``) may update them in
+    place from any thread."""
+    device = (_state_device(params) if params is not None
+              else next(model.parameters()).device)
+    shape = (batch_size, model.max_len, model.num_heads, model.head_dim)
+    with torch.inference_mode(False):
+        return {"block_%d.attention.%s" % (i, kv): torch.zeros(
+                    shape, dtype=model.dtype, device=device)
+                for i in range(model.num_layers) for kv in "kv"}
+
+
+def apply(model, params, *args, **kwargs):
+    """Run ``model`` on the state ``params`` (plain, or from
+    :func:`edl_tpu_torch.ops.quant.quantize_tree`: dequantized here, in
+    the forward), or on its own parameters when ``params`` is None."""
+    if params is None:
+        return model(*args, **kwargs)
+    return functional_call(model, quant.dequantize_tree(params), args,
+                           kwargs)
+
+
+def _filter_logits(logits, top_k=0, top_p=0.0):
+    """Mask logits outside the sampling nucleus: keep the top_k largest
+    (0 = all) and/or the smallest prefix of the sorted distribution whose
+    probability mass reaches top_p (0 = all)."""
+    if top_k and top_k > 0:
+        k = min(top_k, logits.shape[-1])
+        kth = torch.topk(logits, k, dim=-1).values[..., -1:]
+        logits = torch.where(logits < kth, -torch.inf, logits)
+    if top_p and 0.0 < top_p < 1.0:
+        sorted_logits = torch.sort(logits, dim=-1, descending=True).values
+        cum = torch.cumsum(torch.softmax(sorted_logits, dim=-1), dim=-1)
+        # keep ranks whose PRECEDING mass is < top_p (always >= 1 token)
+        keep = torch.cat([torch.zeros_like(cum[..., :1]), cum[..., :-1]],
+                         dim=-1) < top_p
+        cutoff = torch.where(keep, sorted_logits, torch.inf).amin(
+            dim=-1, keepdim=True)
+        logits = torch.where(logits < cutoff, -torch.inf, logits)
+    return logits
+
+
+def generate(model, params, prompt_ids, max_new_tokens, generator=None,
+             temperature=0.0, top_k=0, top_p=0.0):
+    """Autoregressive sampling with the KV cache: ONE batched prefill
+    forward fills the cache over the whole prompt, then a loop decodes
+    ``max_new_tokens`` (greedy at temperature 0, first index on ties;
+    temperature > 0 samples from ``generator``, default one seeded 0,
+    optionally truncated to the ``top_k`` largest logits and/or the
+    ``top_p`` nucleus). ``params`` as for :func:`apply`. Returns
+    [b, prompt+new] int64 ids on the model's device."""
+    device = (_state_device(params) if params is not None
+              else next(model.parameters()).device)
+    ids = torch.as_tensor(np.asarray(prompt_ids), device=device).long()
+    b, prompt_len = ids.shape
+    total = prompt_len + max_new_tokens
+    if total > model.max_len:
+        raise ValueError("prompt+new %d exceeds max_len %d"
+                         % (total, model.max_len))
+    if max_new_tokens < 1:
+        return ids
+    if generator is None:
+        generator = torch.Generator(device=device).manual_seed(0)
+    if params is not None:
+        params = quant.dequantize_tree(params)
+
+    def sample(logits):
+        if temperature > 0:
+            # temperature FIRST, then the nucleus: top_p is a mass of
+            # the actual sampling distribution
+            scaled = _filter_logits(logits / temperature, top_k=top_k,
+                                    top_p=top_p)
+            return torch.multinomial(torch.softmax(scaled, dim=-1), 1,
+                                     generator=generator)[:, 0]
+        return torch.argmax(logits, dim=-1)
+
+    with torch.no_grad():
+        cache = init_cache(model, params, b)
+        logits = apply(model, params, ids, cache=cache, prefill=True)
+        tok = sample(logits[:, -1])
+        out = [ids, tok[:, None]]
+        # position t produces token t + 1
+        for t in range(prompt_len, total - 1):
+            logits = apply(model, params, tok[:, None], cache=cache,
+                           decode=True, decode_index=t)
+            tok = sample(logits[:, 0])
+            out.append(tok[:, None])
+    return torch.cat(out, dim=1)
+
+
+def gpt_tiny(**kw):
+    kw.setdefault("num_layers", 4)
+    kw.setdefault("d_model", 64)
+    kw.setdefault("num_heads", 4)
+    kw.setdefault("mlp_dim", 128)
+    kw.setdefault("vocab_size", 256)
+    kw.setdefault("max_len", 128)
+    return Gpt(**kw)
+
+
+def synthetic_lm_batch(batch_size, seq_len=32, vocab_size=256, seed=0):
+    """Learnable synthetic stream: arithmetic sequences mod vocab (each
+    next token is prev + step, a pattern a causal LM can learn)."""
+    rng = np.random.RandomState(seed)
+    start = rng.randint(0, vocab_size, (batch_size, 1))
+    step = rng.randint(1, 7, (batch_size, 1))
+    pos = np.arange(seq_len)[None, :]
+    ids = (start + step * pos) % vocab_size
+    return {"input_ids": ids.astype(np.int32)}
 
 
 def params_from_flax(tree):

@@ -44,6 +44,14 @@ def dequantize(q, scale, dtype=torch.float32):
     return (q.float() * scale).to(dtype)
 
 
+def int8_matmul(x, q, scale, dtype=torch.float32):
+    """``x @ dequant(q)`` with the scale applied AFTER the contraction:
+    ``(x @ q) * scale``, per-channel scales broadcast over the output
+    axis (the product itself runs in f32)."""
+    acc = torch.matmul(x.float(), q.float())
+    return (acc * scale).to(dtype)
+
+
 def _is_kernel(name):
     return name.rsplit(".", 1)[-1] == "kernel"
 
@@ -80,3 +88,18 @@ def dequantize_tree(state, dtype=torch.float32):
         else:
             out[name] = leaf
     return out
+
+
+def quantized_bytes(state):
+    """(bytes_quantized, bytes_fp32) for the state — the advertised
+    compression ratio in stats/bench output."""
+    qb = fb = 0
+    for leaf in state.values():
+        if isinstance(leaf, QTensor):
+            n = leaf.values.numel()
+            qb += n + leaf.scale.numel() * 4
+            fb += n * 4
+        else:
+            qb += leaf.numel() * leaf.element_size()
+            fb += leaf.numel() * 4
+    return qb, fb

@@ -80,3 +80,7 @@ def test_entry_points_raise_without_cuda(monkeypatch):
                 vocab_size=8, max_len=8)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         teacher_server.gpt_teacher(device="cuda")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        teacher_server.lm_teacher()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        teacher_server.lm_teacher(device="cuda")

@@ -4,9 +4,12 @@ The JAX ``gpt_teacher(params=P)`` and the port's
 ``gpt_teacher(params=P, device="cpu")`` serve the same requests —
 including concurrent 1- and 2-row requests that adaptive batching
 coalesces — and must agree on ``logits``/``probs`` and on the batch and
-row counts of ``stats()``. Each server is driven by the OTHER package's
-``RpcClient``, which shows the wire (frames, envelopes, ndarray tensor
-frames) is unchanged between the two.
+row counts of ``stats()``. Likewise the two ``lm_teacher``s (the decode
+plane, f32): the same ``lm_generate`` tokens, ``lm_poll`` streams,
+``get_feed_fetch`` capacities, ``stats()`` keys and drain. Each server
+is driven by the OTHER package's ``RpcClient``, which shows the wire
+(frames, envelopes, ndarray tensor frames) is unchanged between the
+two.
 """
 
 import jax
@@ -25,6 +28,13 @@ from edl_tpu_torch.serve.admission import \
 from edl_tpu_torch.utils import errors
 
 SEQ, VOCAB, MAX_BATCH = 16, 64, 3
+# the decode plane's tiny f32 model: the JAX decode suite's
+# (tests/test_decode_engine.py)
+LM = dict(num_layers=2, d_model=32, num_heads=2, mlp_dim=64,
+          vocab_size=VOCAB, max_len=64, slots=4)
+LM_NEW = 6
+# f32 on both sides: only the summation order differs
+F32_TOL = 1e-4
 SIZE = dict(num_layers=2, d_model=32, num_heads=2, mlp_dim=64,
             vocab_size=VOCAB, seq_len=SEQ)
 # both servers run bf16 activations (as gpt_teacher builds the model);
@@ -136,3 +146,114 @@ def test_nop_teacher_serves_zeros(monkeypatch):
     finally:
         srv.stop()
     np.testing.assert_array_equal(out["logits"], np.zeros((1, 4)))
+
+
+@pytest.fixture(scope="module")
+def lm_servers():
+    model = jgpt.gpt_tiny(**{k: v for k, v in LM.items() if k != "slots"},
+                          dtype=jnp.float32)
+    params = jax.jit(model.init)(jax.random.PRNGKey(0),
+                                 jnp.zeros((1, 8), jnp.int32))["params"]
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("EDL_TPU_DISABLE_UDS", "1")
+        kw = dict(LM, max_batch=1, host="127.0.0.1")
+        jax_srv = jts.lm_teacher(params=params, **kw).start()
+        torch_srv = tts.lm_teacher(params=params, device="cpu", **kw).start()
+    clients = [TorchRpcClient(jax_srv.endpoint, timeout=120.0),
+               JaxRpcClient(torch_srv.endpoint, timeout=120.0)]
+    try:
+        yield clients
+    finally:
+        for c in clients:
+            c.close()
+        jax_srv.stop()
+        torch_srv.stop()
+
+
+_LM_PROMPTS = [[1, 5, 9], [2, 4, 6, 8], [3, 3, 3], [7, 1, 7, 1, 5, 9, 2],
+               [9, 8, 7]]
+
+
+def _lm_stream(client, prompt):
+    seq = client.call("lm_submit", prompt, LM_NEW)["seq"]
+    tokens, done = [], False
+    while not done:
+        out = client.call("lm_poll", seq, len(tokens))
+        tokens += out["tokens"]
+        done = out["done"]
+    return tokens
+
+
+def test_lm_teacher_generate_and_poll_match_jax(lm_servers):
+    jax_side, torch_side = lm_servers
+    results = []
+    for client in (jax_side, torch_side):
+        futs = [client.call_async("lm_generate", p, LM_NEW)
+                for p in _LM_PROMPTS]
+        reports = [f.result(timeout=120) for f in futs]
+        streams = [_lm_stream(client, p) for p in _LM_PROMPTS[:2]]
+        results.append((reports, streams))
+    (want, want_streams), (got, got_streams) = results
+    for p, g, w in zip(_LM_PROMPTS, got, want):
+        assert g["tokens"] == w["tokens"]
+        assert g["tokens"][:len(p)] == p
+        assert g["generated"] == w["generated"] == g["tokens"][len(p):]
+        assert all(type(t) is int for t in g["tokens"])
+        assert type(g["ttft_ms"]) is float
+    assert got_streams == want_streams
+    assert got_streams[0] == got[0]["generated"]
+
+
+def test_lm_teacher_predict_matches_jax(lm_servers):
+    jax_side, torch_side = lm_servers
+    feed = {"input_ids": np.random.RandomState(3).randint(
+        0, VOCAB, (1, LM["max_len"])).astype(np.int32)}
+    want = jax_side.call("predict", feed)
+    got = torch_side.call("predict", feed)
+    for key in ("logits", "probs"):
+        assert got[key].shape == want[key].shape == (1, 64, VOCAB)
+    np.testing.assert_allclose(got["logits"], want["logits"], rtol=F32_TOL,
+                               atol=F32_TOL)
+    with pytest.raises(Exception) as exc:
+        torch_side.call("predict", {"input_ids": np.full(
+            (1, LM["max_len"]), VOCAB, np.int32)})
+    assert type(exc.value).__name__ == "FeedSpecError"
+
+
+def test_lm_teacher_surface_stats_and_drain(lm_servers):
+    jax_side, torch_side = lm_servers
+    got = torch_side.call("get_feed_fetch")
+    want = jax_side.call("get_feed_fetch")
+    assert got == want
+    assert "decode.engine" in got["features"]
+    assert got["capacity_decode"] == float(LM["slots"])
+    got_stats = torch_side.call("stats")
+    want_stats = jax_side.call("stats")
+    assert set(got_stats) == set(want_stats)
+    assert got_stats["decode_step_traces"] == 1
+    with pytest.raises(Exception) as exc:
+        torch_side.call("lm_generate", [VOCAB + 1], 2)
+    assert type(exc.value).__name__ == "FeedSpecError"
+    for client in (jax_side, torch_side):
+        report = client.call("drain", 30.0)
+        assert report["drained"] is True
+        with pytest.raises(Exception) as exc:
+            client.call("lm_generate", [1, 2], 2)
+        assert type(exc.value).__name__ == "OverloadedError"
+
+
+def test_decommission_drains_port_lm_teacher(monkeypatch):
+    """``serve/drain.py`` on the port's lm_teacher: sequences in flight
+    when the drain starts all finish, then the server stops."""
+    from edl_tpu_torch.serve.drain import decommission
+
+    monkeypatch.setenv("EDL_TPU_DISABLE_UDS", "1")
+    srv = tts.lm_teacher(**LM, max_batch=1, host="127.0.0.1",
+                         device="cpu").start()
+    engine = srv.decode_engine
+    handles = [engine.submit([i + 1, 2, 3], LM_NEW) for i in range(6)]
+    report = decommission(srv, deadline_s=60.0)
+    assert report["drained"] is True and report["advertised"] is False
+    for h in handles:
+        assert len(h.result(timeout=1.0)["generated"]) == LM_NEW
+    assert not engine.running
