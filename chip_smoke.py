@@ -10,15 +10,17 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    card at the shapes the serving path gives it (and in the regimes of
    the TPU kernels it replaces), and time kernel, plain version, and
    one PyTorch library call of the same function as a yardstick. The
-   flash forward has two kernels: ``sm90`` (wgmma, bf16 at head_dim 64
-   and 128, the served path) and ``ffma`` (f32 and the other head
-   dims); both are held and timed, ``ffma`` also at the served bf16
-   shape, for the comparison;
+   flash forward has three kernels: ``sm90`` (wgmma, bf16 at head_dim
+   64 and 128, the served path), ``tf32x3`` (3xTF32 wgmma, f32 at
+   head_dim 64, lm_teacher's prefills) and ``ffma`` (the other head
+   dims); all are held and timed, ``ffma`` also by name at the served
+   bf16 shape and at lm_teacher's longest prefill, and beside every
+   f32 ``tf32x3`` row on the same inputs, for the comparison;
 3. slice: start the port's full-width GPT-2s ``gpt_teacher`` on the
    card, send ``predict`` requests through the port's ``RpcClient``
    (some concurrent), check the replies, check that every layer's
-   attention went through the ``sm90`` kernel and none through
-   ``ffma``, and check the served logits against the same model run
+   attention went through the ``sm90`` kernel and none through the
+   others, and check the served logits against the same model run
    with dense attention;
 4. decode: start the port's full-width GPT-2s ``lm_teacher`` (f32,
    8 KV slots) on the card and drive its decode plane through the
@@ -28,20 +30,24 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    decode to the tokens of the port's ``generate`` on the same weights
    with dense attention (a mismatch only where the reference's top-2
    logit gap is below the measured logits error between the two
-   paths), with one step shape, 12 ``ffma`` launches per monolithic
+   paths), with one step shape, 12 ``tf32x3`` launches per monolithic
    prefill and none elsewhere, exact prefix-reuse accounting; a second
    engine with chunked prefill must decode two prompts to the same
    tokens, and an int8 ``lm_teacher`` must pass the JAX package's
    quantized gate. Then a closed-loop load of 250 requests from 10
    concurrent clients at the same mix gives TTFT and ITL percentiles
-   and tokens/s. Prints those, KV bytes, peak memory and a profile of
-   one decode step.
+   and tokens/s. The load and a profiled 700-token prefill run twice:
+   on ``tf32x3``, the path under test, and again with the f32
+   attention sent to ``ffma`` (the kernel it replaced), so that one
+   run shows what the kernel moved end to end. Prints those, KV bytes,
+   peak memory and a profile of one decode step.
 
 Prints a ``kernels`` JSON line (launches by path), the card's name and
 power limit, and last ``{"ok": true, "device": {...}}``. Exits
 non-zero, printing no result, when CUDA is unavailable.
 """
 
+import contextlib
 import json
 import os
 import statistics
@@ -65,6 +71,8 @@ from edl_tpu_torch.serve.decode_engine import DecodeEngine, _prefill_bucket
 # the card's published peaks (H100 SXM data sheet, dense)
 PEAK_BYTES_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+# TF32 on the tensor cores: an f32 product by the 3xTF32 split costs three
+PEAK_TF32 = 495e12
 
 # GPT-2 small at a 32000 vocab: edl_tpu_torch Gpt()'s defaults, served as
 # gpt_teacher builds it (bf16 activations over f32 params)
@@ -129,7 +137,27 @@ def build(gpu):
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 log("  " + line.strip())
-    log("build: both kernels in %.1fs of wall time" % (time.monotonic() - t0))
+    log("build: %d kernels in %.1fs of wall time"
+        % (len(fa.SOURCES), time.monotonic() - t0))
+
+
+def only(kernel, n):
+    """Launch counts by kernel: ``n`` of ``kernel``, none of the rest."""
+    return {name: n if name == kernel else 0 for name in fa.SOURCES}
+
+
+@contextlib.contextmanager
+def f32_attention_on(kernel):
+    """Send the port's f32 head_dim-64 attention to ``kernel`` inside the
+    block (``"ffma"``: the path as it was before ``tf32x3``), for a
+    comparison within one run."""
+    pick = fa.kernel_for
+    fa.kernel_for = lambda dtype, d: (
+        kernel if (dtype, d) == (torch.float32, 64) else pick(dtype, d))
+    try:
+        yield
+    finally:
+        fa.kernel_for = pick
 
 
 def time_ms(fn, flush, reps):
@@ -148,18 +176,44 @@ def time_ms(fn, flush, reps):
     return statistics.median(times)
 
 
+def device_ms(fn, reps=5):
+    """Device time of the flash kernel in one call of ``fn`` by
+    torch.profiler, the mean over ``reps`` calls back to back (L2 warm):
+    the kernel's own time, without the idle gaps that CUDA events also
+    count around a launch that takes tens of microseconds."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if "flash_fwd" in e.key)
+    return us / 1e3 / reps
+
+
 def flash_bound_ms(b, h, s, sk, d, dtype, causal):
     """Least time for the function: q, k, v read once, o written once,
     over the memory rate; or the operations these inputs need (two
     products, 2 flops per multiply-add; under causal, row i meets
-    min(i + 1, sk) keys) over the peak rate for the input type."""
+    min(i + 1, sk) keys) over the peak rate for the input type, the
+    larger. f32 operations take the smaller of the CUDA cores' f32 time
+    and three TF32 passes on the tensor cores (the 3xTF32 split).
+    Returns (ms, "bytes" or "operations", the rate the operations
+    took)."""
     item = torch.tensor([], dtype=dtype).element_size()
     nbytes = b * h * (2 * s * d + 2 * sk * d) * item
     keys = sum(min(i + 1, sk) for i in range(s)) if causal else s * sk
     flops = 4 * d * keys * b * h
-    t_bytes, t_ops = nbytes / PEAK_BYTES_S, flops / PEAK_FLOPS[dtype]
+    t_ops, rate = flops / PEAK_FLOPS[dtype], (
+        "bf16 tensor cores" if dtype == torch.bfloat16 else "f32 CUDA cores")
+    if dtype == torch.float32 and 3 * flops / PEAK_TF32 < t_ops:
+        t_ops, rate = 3 * flops / PEAK_TF32, "3xTF32 tensor cores"
+    t_bytes = nbytes / PEAK_BYTES_S
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                       else "operations")
+                                       else "operations"), rate
 
 
 def flash_inputs(b, h, s, sk, d, dtype, gen, device="cuda"):
@@ -186,41 +240,53 @@ def check_flash(out, ref, dtype, case):
 
 
 def kernel_phase(gpu):
-    """Phase 2: both flash kernels vs their plain version, timed. A case
+    """Phase 2: the flash kernels vs their plain version, timed. A case
     names its kernel: None for the one ``kernel_for`` picks, the way the
     served path launches it, or "ffma" to run flash_fwd.cu on a shape
-    that the served path sends to sm90."""
+    that the served path sends to another kernel. Every f32 row of
+    ``tf32x3`` also times ``ffma`` on the same inputs."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(SEED)
+    f32, bf16 = torch.float32, torch.bfloat16
     cases = [  # (b, h, s, sk, d, dtype, causal, what, kernel)
-        (MAX_BATCH, 12, 1024, 1024, 64, torch.bfloat16, True, "slice"),
-        (MAX_BATCH, 12, 1024, 1024, 64, torch.bfloat16, False, "slice"),
-        (MAX_BATCH, 12, 1024, 1024, 64, torch.float32, True, "f32"),
-        (MAX_BATCH, 12, 1024, 1024, 64, torch.bfloat16, True, "slice",
-         "ffma"),
-        (MAX_BATCH, 6, 1024, 1024, 128, torch.bfloat16, True, "d128"),
-        (MAX_BATCH, 6, 1024, 1024, 128, torch.bfloat16, False, "d128"),
-        (MAX_BATCH, 12, 1000, 1000, 64, torch.bfloat16, True, "ragged sk"),
-        (MAX_BATCH, 12, 1000, 1000, 64, torch.bfloat16, False, "ragged sk"),
-        (MAX_BATCH, 12, 100, 1000, 64, torch.bfloat16, False, "sk != s"),
-        (MAX_BATCH, 12, 100, 1000, 64, torch.bfloat16, True, "sk != s"),
+        (MAX_BATCH, 12, 1024, 1024, 64, bf16, True, "slice"),
+        (MAX_BATCH, 12, 1024, 1024, 64, bf16, False, "slice"),
+        (MAX_BATCH, 12, 1024, 1024, 64, bf16, True, "slice", "ffma"),
+        (MAX_BATCH, 6, 1024, 1024, 128, bf16, True, "d128"),
+        (MAX_BATCH, 6, 1024, 1024, 128, bf16, False, "d128"),
+        (MAX_BATCH, 12, 1000, 1000, 64, bf16, True, "ragged sk"),
+        (MAX_BATCH, 12, 1000, 1000, 64, bf16, False, "ragged sk"),
+        (MAX_BATCH, 12, 100, 1000, 64, bf16, False, "sk != s"),
+        (MAX_BATCH, 12, 100, 1000, 64, bf16, True, "sk != s"),
         # 40 of the one kv tile's 64 rows lie beyond sk: the ragged mask
         # decides the output
-        (MAX_BATCH, 12, 1024, 24, 64, torch.bfloat16, False, "short sk"),
-        (1, 2, 16640, 16640, 64, torch.bfloat16, True, "K+V > 4 MiB"),
+        (MAX_BATCH, 12, 1024, 24, 64, bf16, False, "short sk"),
+        (1, 2, 16640, 16640, 64, bf16, True, "K+V > 4 MiB"),
+        # f32 at head_dim 64 (tf32x3) in the same regimes
+        (MAX_BATCH, 12, 1024, 1024, 64, f32, True, "f32"),
+        (MAX_BATCH, 12, 1024, 1024, 64, f32, False, "f32"),
+        (MAX_BATCH, 12, 1000, 1000, 64, f32, True, "ragged sk"),
+        (MAX_BATCH, 12, 100, 1000, 64, f32, False, "sk != s"),
+        (MAX_BATCH, 12, 100, 1000, 64, f32, True, "sk != s"),
+        (MAX_BATCH, 12, 1024, 24, 64, f32, False, "short sk"),
+        (1, 2, 16640, 16640, 64, f32, True, "K+V > 4 MiB"),
     ]
     # lm_teacher's monolithic prefills: b1 h12 d64 f32 causal at every
-    # power-of-two prompt bucket that the decode phase sends
-    cases += [(1, 12, s, s, 64, torch.float32, True, "lm prefill")
+    # power-of-two prompt bucket that the decode phase sends; the longest
+    # also on the kernel tf32x3 replaced there
+    cases += [(1, 12, s, s, 64, f32, True, "lm prefill")
               for s in lm_buckets()]
+    cases += [(1, 12, LM["max_len"], LM["max_len"], 64, f32, True,
+               "lm prefill", "ffma")]
     results = []
     for b, h, s, sk, d, dtype, causal, what, *forced in cases:
         kernel = forced[0] if forced else fa.kernel_for(dtype, d)
         q, k, v = flash_inputs(b, h, s, sk, d, dtype, gen)
+        by_name = lambda name: fa._launch(q, k, v, causal, d ** -0.5, name)
         if forced:
-            run = lambda: fa._launch(q, k, v, causal, d ** -0.5, kernel)
+            run = lambda: by_name(kernel)
         else:
             run = lambda: fa.flash_attention(q, k, v, causal)
         out = run()
@@ -228,28 +294,47 @@ def kernel_phase(gpu):
         ref = fa.blockwise_reference(q, k, v, causal, d ** -0.5)
         err = check_flash(out, ref, dtype,
                           (kernel, b, h, s, sk, d, dtype, causal))
+        atol, rtol = KERNEL_TOL[dtype]
+        margin = ((out.float() - ref.float()).abs()
+                  - rtol * ref.float().abs()).max().item() / atol
         mean_ref = ref.float().abs().mean().item()
         reps = 20 if s <= 1024 else 5
         ms = time_ms(run, flush, reps)
+        ffma_ms = dev_ms = ffma_dev_ms = None
+        if kernel == "tf32x3":
+            ffma_ms = time_ms(lambda: by_name("ffma"), flush, reps)
+        if what == "lm prefill":
+            dev_ms = device_ms(run)
+            if kernel == "tf32x3":
+                ffma_dev_ms = device_ms(lambda: by_name("ffma"))
         plain_ms = time_ms(lambda: fa.blockwise_reference(
             q, k, v, causal, d ** -0.5), flush, max(3, reps // 4))
         library_ms = time_ms(
             lambda: torch.nn.functional.scaled_dot_product_attention(
                 q, k, v, is_causal=causal), flush, reps)
-        bound_ms, bound_by = flash_bound_ms(b, h, s, sk, d, dtype, causal)
+        bound_ms, bound_by, bound_rate = flash_bound_ms(b, h, s, sk, d,
+                                                        dtype, causal)
         row = dict(kernel=kernel, shape=[b, h, s, sk, d],
                    dtype=str(dtype).split(".")[-1],
                    causal=causal, what=what, max_abs_err=err,
-                   mean_abs_out=mean_ref, ms=ms,
-                   plain_ms=plain_ms, library_ms=library_ms,
-                   bound_ms=bound_ms, bound_by=bound_by)
+                   excess_over_atol=margin, mean_abs_out=mean_ref, ms=ms,
+                   ffma_ms=ffma_ms, device_ms=dev_ms,
+                   ffma_device_ms=ffma_dev_ms, plain_ms=plain_ms,
+                   library_ms=library_ms,
+                   bound_ms=bound_ms, bound_by=bound_by,
+                   bound_rate=bound_rate)
         log("kernel flash_fwd %s b=%d h=%d s=%d sk=%d d=%d %s %s (%s): "
-            "max_abs_err %.3g (tol %g + %g |ref|; mean |ref| %.3g); kernel "
-            "%.4f ms, plain %.4f ms, sdpa %.4f ms, bound %.2f us (%s) [%s]"
+            "max_abs_err %.3g (tol %g + %g |ref|, worst excess %.3g of the "
+            "atol; mean |ref| %.3g); kernel %.4f ms%s, plain %.4f ms, sdpa "
+            "%.4f ms, bound %.2f us (%s, %s)%s [%s]"
             % (kernel, b, h, s, sk, d, row["dtype"],
-               "causal" if causal else "full",
-               what, err, *KERNEL_TOL[dtype], mean_ref, ms, plain_ms,
-               library_ms, bound_ms * 1e3, bound_by, gpu))
+               "causal" if causal else "full", what, err,
+               *KERNEL_TOL[dtype], margin, mean_ref, ms,
+               "" if ffma_ms is None else ", ffma %.4f ms" % ffma_ms,
+               plain_ms, library_ms, bound_ms * 1e3, bound_by, bound_rate,
+               "" if dev_ms is None else "; profiled device time %.4f ms%s"
+               % (dev_ms, "" if ffma_dev_ms is None
+                  else ", ffma %.4f ms" % ffma_dev_ms), gpu))
         results.append(row)
     del flush
     return results
@@ -306,10 +391,10 @@ def slice_phase(gpu):
         server.stop()
     batches = stats["batches"] - stats0["batches"]
     rows = stats["rows"] - stats0["rows"]
-    if batches < 1 or launches["sm90"] != 12 * batches \
-            or launches["ffma"] != 0 or total != 12 * batches:
+    if batches < 1 or launches != only("sm90", 12 * batches) \
+            or total != 12 * batches:
         raise AssertionError("flash launches %s (total %d) are not 12 sm90 "
-                             "and 0 ffma x %d device batches"
+                             "and no other x %d device batches"
                              % (launches, total, batches))
     for f, rep in zip(feeds, replies):
         n = len(f["input_ids"])
@@ -325,9 +410,9 @@ def slice_phase(gpu):
             raise AssertionError("probs rows sum to %s" % sums)
     tokens = rows * seq
     log("slice: %d requests (%d rows) in %d device batches, flash "
-        "launches sm90 %d, ffma %d (12 sm90 per batch); latency per "
-        "request %s s; %.1f tokens/s; wall %.3fs [%s]"
-        % (len(replies), rows, batches, launches["sm90"], launches["ffma"],
+        "launches %s (12 sm90 per batch); latency per request %s s; %.1f "
+        "tokens/s; wall %.3fs [%s]"
+        % (len(replies), rows, batches, launches,
            ["%.3f" % x for x in latencies], tokens / wall, wall, gpu))
 
     # the served logits against the same weights with dense attention
@@ -430,16 +515,18 @@ def lm_prompts():
     return wave, tails
 
 
-def load_prompts():
+def load_prompts(first=1000):
     """The load's prompts: seeded numpy ids, lengths uniform over
-    LM_LENGTHS' range. Each first token (1000 + i) is its own, so every
-    request is a cold, monolithic prefill, as in the concurrent wave."""
+    LM_LENGTHS' range. Each first token (``first`` + i) is its own, so
+    every request is a cold, monolithic prefill, as in the concurrent
+    wave; a second load with another ``first`` sends the same work and
+    still misses the prefix cache."""
     rng = np.random.RandomState(SEED + 3)
     lengths = rng.randint(LM_LENGTHS[0], LM_LENGTHS[-1] + 1, LM_LOAD)
     prompts = [rng.randint(0, LM["vocab_size"], n).tolist()
                for n in lengths]
     for i, p in enumerate(prompts):
-        p[0] = 1000 + i
+        p[0] = first + i
     return prompts
 
 
@@ -553,6 +640,14 @@ def decode_phase(gpu):
         load, load_s = load_run(server.endpoint, load_prompts())
         by_path["decode_load"] = dict(fa.flash_attention.kernel_launches)
         after = client.call("stats")
+        # the same load again with the f32 attention on ffma: what
+        # tf32x3 moved end to end, in this run (not a main-path count)
+        fa.reset_launches()
+        with f32_attention_on("ffma"):
+            load_ffma, load_ffma_s = load_run(server.endpoint,
+                                              load_prompts(first=2000))
+        ffma_load = dict(fa.flash_attention.kernel_launches)
+        after_ffma = client.call("stats")
     finally:
         client.close()
         server.stop()
@@ -563,25 +658,24 @@ def decode_phase(gpu):
     cold = pfx["misses"] - pfx0["misses"]
     hits = pfx["hits"] - pfx0["hits"]
     reused = pfx["reuse_tokens"] - pfx0["reuse_tokens"]
-    log("decode: %d sequences of %d new tokens; flash launches ffma %d, "
-        "sm90 %d for %d monolithic prefills (%d ffma each); prefix hits "
-        "%d, reuse_tokens %d; step shapes %d; %d polls streamed seq %d "
-        "[%s]" % (len(prompts), LM_NEW, by_path["decode"]["ffma"],
-                  by_path["decode"]["sm90"], cold, layers, hits, reused,
-                  stats["decode_step_traces"], polls, seq, gpu))
-    if cold != len(wave) + 1 or by_path["decode"] != {
-            "ffma": layers * cold, "sm90": 0}:
+    log("decode: %d sequences of %d new tokens; flash launches %s for %d "
+        "monolithic prefills (%d tf32x3 each); prefix hits %d, "
+        "reuse_tokens %d; step shapes %d; %d polls streamed seq %d [%s]"
+        % (len(prompts), LM_NEW, by_path["decode"], cold, layers, hits,
+           reused, stats["decode_step_traces"], polls, seq, gpu))
+    if cold != len(wave) + 1 or \
+            by_path["decode"] != only("tf32x3", layers * cold):
         raise AssertionError("decode flash launches %s for %d monolithic "
-                             "prefills: want %d ffma each, 0 sm90, and %d "
-                             "prefills" % (by_path["decode"], cold, layers,
-                                           len(wave) + 1))
+                             "prefills: want %d tf32x3 each and no other, "
+                             "and %d prefills" % (by_path["decode"], cold,
+                                                  layers, len(wave) + 1))
     if hits != 2 or reused != 2 * LM_SHARED:
         raise AssertionError("prefix hits %d reuse_tokens %d, want 2 and %d"
                              % (hits, reused, 2 * LM_SHARED))
     if stats["decode_step_traces"] != 1:
         raise AssertionError("decode step ran at %d shapes"
                              % stats["decode_step_traces"])
-    if by_path["lm_predict"] != {"ffma": layers, "sm90": 0}:
+    if by_path["lm_predict"] != only("tf32x3", layers):
         raise AssertionError("lm predict launches %s"
                              % by_path["lm_predict"])
     logits = f32_reply["logits"]
@@ -590,33 +684,12 @@ def decode_phase(gpu):
     log("decode: the concurrent wave of %d requests (%d tokens) took "
         "%.3fs [%s]" % (len(wave), len(wave) * LM_NEW, wave_s, gpu))
 
-    # serving metrics: TTFT and ITL of the closed-loop load, by request
-    load_cold = after["decode_prefix"]["misses"] - pfx["misses"]
-    load_hits = after["decode_prefix"]["hits"] - pfx["hits"]
-    if load_cold != LM_LOAD or load_hits or by_path["decode_load"] != {
-            "ffma": layers * LM_LOAD, "sm90": 0} or \
-            after["decode_step_traces"] != 1:
-        raise AssertionError("load: %d cold prefills, %d prefix hits, "
-                             "launches %s, step shapes %d; want %d cold, "
-                             "%d ffma, one step shape"
-                             % (load_cold, load_hits, by_path["decode_load"],
-                                after["decode_step_traces"], LM_LOAD,
-                                layers * LM_LOAD))
-    ttft = [r["ttft_ms"] for r in load]
-    itl = [x for r in load for x in r["itl_ms"]]
-    steps = after["decode_steps_total"] - stats["decode_steps_total"]
-    log("decode: closed-loop load, %d requests from %d clients (prompts "
-        "%d-%d, %d new tokens each): TTFT p50 %.2f ms, p90 %.2f ms, p99 "
-        "%.2f ms over %d requests; ITL p50 %.2f ms, p90 %.2f ms, p99 %.2f "
-        "ms over %d intervals; %.1f decode tokens/s (%d generated in "
-        "%.3fs; %d fused steps, %.2f live slots per step); the engine's "
-        "step EWMA at the end %.2f ms [%s]"
-        % (LM_LOAD, LM_LOAD_CLIENTS, LM_LENGTHS[0], LM_LENGTHS[-1], LM_NEW,
-           pct(ttft, 50), pct(ttft, 90), pct(ttft, 99), len(ttft),
-           pct(itl, 50), pct(itl, 90), pct(itl, 99), len(itl),
-           LM_LOAD * LM_NEW / load_s, LM_LOAD * LM_NEW, load_s, steps,
-           LM_LOAD * (LM_NEW - 1) / max(steps, 1),
-           after["decode_admission"]["itl_ms"], gpu))
+    # serving metrics: TTFT and ITL of the closed-loop load, by request,
+    # on tf32x3 (the path under test) and on ffma (as before it)
+    for kernel, load_i, load_s_i, launches, st0, st1 in (
+            ("tf32x3", load, load_s, by_path["decode_load"], stats, after),
+            ("ffma", load_ffma, load_ffma_s, ffma_load, after, after_ffma)):
+        log_load(kernel, load_i, load_s_i, launches, st0, st1, gpu)
     log("decode: decode_kv_bytes %d (%.1f MB); peak device memory %.2f GB "
         "[%s]" % (stats["decode_kv_bytes"], stats["decode_kv_bytes"] / 1e6,
                   peak_gb, gpu))
@@ -661,7 +734,7 @@ def decode_phase(gpu):
         hold_tokens(dense, params, wave[i], out, reports[i]["generated"],
                     err, "chunked sequence %d (prompt %d)"
                     % (i, len(wave[i])), gpu)
-    if by_path["chunked"] != {"ffma": 0, "sm90": 0} or \
+    if by_path["chunked"] != only("tf32x3", 0) or \
             cstats["decode_step_traces"] != 1:
         raise AssertionError("chunked engine: launches %s, step shapes %d"
                              % (by_path["chunked"],
@@ -672,11 +745,14 @@ def decode_phase(gpu):
            cstats["decode_chunk_traces"], gpu))
 
     decode_step_profile(engine, "f32 decode step", gpu)
-    fa.reset_launches()
-    prefill_profile(engine, wave[-1], gpu)
-    if fa.flash_attention.kernel_launches["ffma"] != 5 * layers:
-        raise AssertionError("the profiled prefills launched %s"
-                             % fa.flash_attention.kernel_launches)
+    for kernel in ("tf32x3", "ffma", "tf32x3", "ffma"):  # in turns
+        fa.reset_launches()
+        with f32_attention_on(kernel):
+            prefill_profile(engine, wave[-1], kernel, gpu)
+        if fa.flash_attention.kernel_launches != only(kernel, 5 * layers):
+            raise AssertionError(
+                "the profiled prefills on %s launched %s"
+                % (kernel, fa.flash_attention.kernel_launches))
     int8_gate(feed, logits, gpu)
     return by_path
 
@@ -708,6 +784,39 @@ def load_run(endpoint, prompts):
         reports = [r for rs in pool.map(run, range(LM_LOAD_CLIENTS))
                    for r in rs]
     return reports, time.monotonic() - t0
+
+
+def log_load(kernel, load, load_s, launches, st0, st1, gpu):
+    """Check one closed-loop load (every prefill cold, 12 launches of
+    ``kernel`` each and no other, one step shape) and log its TTFT, ITL
+    and tokens/s; ``st0`` and ``st1`` are the server's stats before and
+    after it."""
+    layers = LM["num_layers"]
+    cold = st1["decode_prefix"]["misses"] - st0["decode_prefix"]["misses"]
+    hits = st1["decode_prefix"]["hits"] - st0["decode_prefix"]["hits"]
+    if cold != LM_LOAD or hits or launches != only(kernel, layers * LM_LOAD) \
+            or st1["decode_step_traces"] != 1:
+        raise AssertionError("load on %s: %d cold prefills, %d prefix hits, "
+                             "launches %s, step shapes %d; want %d cold, "
+                             "%d %s launches and no other, one step shape"
+                             % (kernel, cold, hits, launches,
+                                st1["decode_step_traces"], LM_LOAD,
+                                layers * LM_LOAD, kernel))
+    ttft = [r["ttft_ms"] for r in load]
+    itl = [x for r in load for x in r["itl_ms"]]
+    steps = st1["decode_steps_total"] - st0["decode_steps_total"]
+    log("decode: closed-loop load on %s, %d requests from %d clients "
+        "(prompts %d-%d, %d new tokens each): TTFT p50 %.2f ms, p90 %.2f "
+        "ms, p99 %.2f ms over %d requests; ITL p50 %.2f ms, p90 %.2f ms, "
+        "p99 %.2f ms over %d intervals; %.1f decode tokens/s (%d generated "
+        "in %.3fs; %d fused steps, %.2f live slots per step); the engine's "
+        "step EWMA at the end %.2f ms [%s]"
+        % (kernel, LM_LOAD, LM_LOAD_CLIENTS, LM_LENGTHS[0], LM_LENGTHS[-1],
+           LM_NEW, pct(ttft, 50), pct(ttft, 90), pct(ttft, 99), len(ttft),
+           pct(itl, 50), pct(itl, 90), pct(itl, 99), len(itl),
+           LM_LOAD * LM_NEW / load_s, LM_LOAD * LM_NEW, load_s, steps,
+           LM_LOAD * (LM_NEW - 1) / max(steps, 1),
+           st1["decode_admission"]["itl_ms"], gpu))
 
 
 def time_calls(fn, reps):
@@ -773,12 +882,12 @@ def decode_step_profile(engine, what, gpu):
     log_profile(step, what, gpu)
 
 
-def prefill_profile(engine, prompt, gpu):
+def prefill_profile(engine, prompt, kernel, gpu):
     """Where a time-to-first-token goes: one monolithic prefill of
-    ``prompt`` (its power-of-two bucket, flash) and one suffix chunk of
-    up to 128 tokens at the shared prefix's end (dense, as after a
-    prefix hit), each into slot 0 of the idle engine (median of 3);
-    then the prefill's device time by kernel."""
+    ``prompt`` (its power-of-two bucket, flash on ``kernel``) and one
+    suffix chunk of up to 128 tokens at the shared prefix's end (dense,
+    as after a prefix hit), each into slot 0 of the idle engine (median
+    of 3); then the prefill's device time by kernel."""
     bucket = _prefill_bucket(len(prompt), engine.max_len)
     ids = np.zeros((1, bucket), np.int32)
     ids[0, :len(prompt)] = prompt
@@ -794,13 +903,13 @@ def prefill_profile(engine, prompt, gpu):
         with torch.no_grad():
             engine._chunk_impl(engine.params, chunk, off, width - 1, 0)
 
-    for what, fn in (("prefill %d (bucket %d)" % (len(prompt), bucket),
-                      prefill),
+    for what, fn in (("prefill %d (bucket %d) on %s"
+                      % (len(prompt), bucket, kernel), prefill),
                      ("suffix chunk %d at %d" % (width, off), suffix)):
         device_ms, host_ms = time_calls(fn, 3)
         log("ttft: %s: %.3f ms by CUDA events, %.3f ms host (median of 3) "
             "[%s]" % (what, device_ms, host_ms, gpu))
-    log_profile(prefill, "ttft: the prefill", gpu, top=6)
+    log_profile(prefill, "ttft: the prefill on %s" % kernel, gpu, top=6)
 
 
 def int8_gate(feed, f32_logits, gpu):
@@ -842,8 +951,10 @@ def main():
     by_path.update(decode_phase(gpu))
     repo = os.path.dirname(os.path.abspath(__file__))
     # each kernel's numbers at its main path's shape: sm90 at the served
-    # predict (bf16 causal, b4); ffma at lm_teacher's longest prefill
-    main_case = {"sm90": ("slice", 1024), "ffma": ("lm prefill", 1024)}
+    # predict (bf16 causal, b4); tf32x3 at lm_teacher's longest prefill,
+    # and ffma, which it replaced there, by name on the same shape
+    main_case = {"sm90": ("slice", 1024), "tf32x3": ("lm prefill", 1024),
+                 "ffma": ("lm prefill", 1024)}
     kernels = []
     for name, source in fa.SOURCES.items():
         what, s = main_case[name]
@@ -860,7 +971,9 @@ def main():
             "launches_by_path": launches,
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+            "bound_by": row["bound_by"], "bound_rate": row["bound_rate"],
+            "library_ms": row["library_ms"], "ffma_ms": row["ffma_ms"],
+            "device_ms": row["device_ms"],
             "shapes": [r for r in kernel_rows if r["kernel"] == name],
         })
     print(json.dumps({"kernels": kernels}), flush=True)

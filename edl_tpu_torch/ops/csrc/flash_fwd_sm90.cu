@@ -6,9 +6,9 @@
 // streaming _fwd_kernel (:30). It computes their function: the causal
 // diagonal anchored at position 0 (q row i sees keys 0..i), keys at or
 // beyond sk masked, masked scores -1e30 and their probabilities 0, an f32
-// online softmax, output acc / max(l, 1e-30). csrc/flash_fwd.cu stays the
-// kernel for f32 and for the other head dims; ops/flash_attention.py picks
-// one of the two before launch (kernel_for).
+// online softmax, output acc / max(l, 1e-30). csrc/flash_fwd_tf32x3.cu is
+// the kernel for f32 at head_dim 64 and csrc/flash_fwd.cu for the rest;
+// ops/flash_attention.py picks one of the three before launch (kernel_for).
 //
 // Layout: q, o are [bh, s, d]; k, v are [bh, sk, d]; contiguous bf16,
 // 16-byte aligned; d is 64 or 128.
@@ -59,10 +59,9 @@
 // consumer warpgroups (warp specialisation), persistent blocks and a TMA
 // store of O are the next steps.
 
-#include <cuda.h>
 #include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -72,75 +71,6 @@ constexpr int NT = 128;    // one warpgroup
 constexpr int HALF = 64;   // bf16 columns in one 128-byte swizzled row
 constexpr uint32_t BOX_BYTES = 64 * 128;  // one 64-row x 64-column box
 constexpr float kNegInf = -1e30f;
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-                   bar),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// One box of a 3-D tensor map (coordinates innermost first) into shared
-// memory; the copy completes its bytes on ``bar``.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int c0, int c1,
-                                         int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
-      "r"(c2)
-      : "memory");
-}
-
-// A wgmma shared-memory descriptor for a 128-byte-swizzled operand: start
-// address, leading and stride byte offsets (16-byte units), layout 1.
-__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo,
-                                               uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait0() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
-}
-
-// Keeps the compiler from reading an accumulator before the wgmma that
-// writes it has been waited for.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
 
 // d += a . b, m64n64k16, a and b from shared memory, both K-major.
 __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
@@ -404,62 +334,14 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
   }
 }
 
-// Error codes beyond CUDA's, for the tensor maps: the CUDA driver has no
-// cuTensorMapEncodeTiled, or it refused a map (+ the CUresult it returned).
-constexpr int kNoEncoder = 100000;
-constexpr int kEncodeFailed = 200000;
-
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-// The CUDA driver's encoder, through the runtime: no -lcuda needed.
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// A [bh, rows, d] bf16 tensor as 3-D boxes of 1 x 64 rows x 64 columns,
-// 128-byte swizzled; what lies beyond rows reads as zeros.
-int tensor_map(CUtensorMap* map, const void* ptr, int bh, int rows, int d) {
-  const EncodeTiled encode = encoder();
-  if (encode == nullptr) return kNoEncoder;
-  const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)rows,
-                              (cuuint64_t)bh};
-  const cuuint64_t strides[2] = {(cuuint64_t)d * 2, (cuuint64_t)rows * d * 2};
-  const cuuint32_t box[3] = {HALF, 64, 1};
-  const cuuint32_t step[3] = {1, 1, 1};
-  const CUresult r = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
-      strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : kEncodeFailed + (int)r;
-}
-
 template <int D, int STAGES>
 int launch(const void* q, const void* k, const void* v, void* o, int bh,
            int s, int sk, float sm_scale, int causal, cudaStream_t stream) {
   CUtensorMap qmap, kmap, vmap;
-  int err = tensor_map(&qmap, q, bh, s, D);
-  if (err == 0) err = tensor_map(&kmap, k, bh, sk, D);
-  if (err == 0) err = tensor_map(&vmap, v, bh, sk, D);
+  const CUtensorMapDataType bf16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  int err = tensor_map(&qmap, bf16, 2, q, bh, s, D);
+  if (err == 0) err = tensor_map(&kmap, bf16, 2, k, bh, sk, D);
+  if (err == 0) err = tensor_map(&vmap, bf16, 2, v, bh, sk, D);
   if (err != 0) return err;
   // q and the ring, plus the slack to align them to 1024 bytes
   const int bytes = (int)((D / HALF) * BOX_BYTES * (1 + 2 * STAGES)) + 1024;
@@ -478,7 +360,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int bh,
 
 // The caller has checked shapes, bf16, contiguity, 16-byte alignment and
 // d in {64, 128}. Returns 0 on success, else a CUDA error (after the launch,
-// cudaGetLastError()) or one of the tensor-map codes above; allocates
+// cudaGetLastError()) or one of hopper.cuh's tensor-map codes; allocates
 // nothing and does not synchronise.
 extern "C" int edl_flash_fwd_sm90(const void* q, const void* k, const void* v,
                                   void* o, int bh, int s, int sk, int d,
@@ -494,9 +376,5 @@ extern "C" int edl_flash_fwd_sm90(const void* q, const void* k, const void* v,
 }
 
 extern "C" const char* edl_flash_sm90_error_string(int err) {
-  if (err == kNoEncoder)
-    return "the CUDA driver has no cuTensorMapEncodeTiled";
-  if (err >= kEncodeFailed)
-    return "cuTensorMapEncodeTiled refused a tensor map";
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
+  return error_string(err);
 }

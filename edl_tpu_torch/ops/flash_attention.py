@@ -1,23 +1,29 @@
-"""Flash attention forward: two hand-written CUDA kernels and their
+"""Flash attention forward: three hand-written CUDA kernels and their
 plain PyTorch version.
 
 The port's counterpart of ``edl_tpu/ops/flash_attention.py``. Exact
 attention that never materializes the [seq, seq] score matrix:
 
-- on a CUDA tensor, :func:`flash_attention` launches one of two kernels,
-  chosen before launch by :func:`kernel_for` from the dtype and head_dim:
+- on a CUDA tensor, :func:`flash_attention` launches one of three
+  kernels, chosen before launch by :func:`kernel_for` from the dtype and
+  head_dim:
   - ``sm90`` (``csrc/flash_fwd_sm90.cu``) for bf16 at head_dim 64 or
     128, the served path: wgmma on the tensor cores, K/V tiles fed by
     TMA into a ring of shared-memory slots, f32 online softmax, P·V as
     two bf16 products (P's bf16 rounding and its remainder) so that it
     keeps the f32 reference's accuracy;
-  - ``ffma`` (``csrc/flash_fwd.cu``) for float32 and the other head
-    dims (multiples of 8 up to 256): f32 FFMA on the CUDA cores;
+  - ``tf32x3`` (``csrc/flash_fwd_tf32x3.cu``) for float32 at head_dim
+    64, lm_teacher's prefills: the same TMA ring, both products as TF32
+    wgmma with every operand split into its TF32 rounding and the
+    remainder (3xTF32), which keeps f32 accuracy;
+  - ``ffma`` (``csrc/flash_fwd.cu``) for the rest (float32 or bf16 at
+    head_dims that are multiples of 8 up to 256): f32 FFMA on the CUDA
+    cores;
   each is built with nvcc on first use and bound with ctypes;
 - on a CPU tensor it runs :func:`blockwise_reference`, the port of the
   JAX package's ``_blockwise_reference`` (a loop over kv blocks with the
   same mask and online-softmax convention), which is also what the
-  tests and ``chip_smoke.py`` hold both kernels against.
+  tests and ``chip_smoke.py`` hold every kernel against.
 
 There is no fallback between any of them: a CUDA tensor launches the
 kernel :func:`kernel_for` names or raises. The backward is not ported
@@ -41,26 +47,36 @@ _NEG_INF = -1e30
 _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 _SOURCE = os.path.join(_CSRC, "flash_fwd.cu")
 _SOURCE_SM90 = os.path.join(_CSRC, "flash_fwd_sm90.cu")
+_SOURCE_TF32X3 = os.path.join(_CSRC, "flash_fwd_tf32x3.cu")
 #: each kernel's source, by the name kernel_for gives it
-SOURCES = {"sm90": _SOURCE_SM90, "ffma": _SOURCE}
+SOURCES = {"sm90": _SOURCE_SM90, "tf32x3": _SOURCE_TF32X3, "ffma": _SOURCE}
 #: head_dim the kernels take: a multiple of 8 (16-byte bf16 rows), <= 256
 HEAD_MULT = 8
 MAX_HEAD_DIM = 256
 #: head_dim the sm90 kernel takes (bf16 only)
 SM90_HEAD_DIMS = (64, 128)
+#: head_dim the tf32x3 kernel takes (float32 only)
+TF32X3_HEAD_DIM = 64
+#: what each wgmma kernel takes, for the refusal of a launch by name
+_TAKES = {"sm90": "bfloat16 at head_dim %s" % (SM90_HEAD_DIMS,),
+          "tf32x3": "float32 at head_dim %d" % TF32X3_HEAD_DIM}
 _MAX_BH = 65535  # gridDim.y of the ffma kernel
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 _lib = None        # flash_fwd.cu's library
 _lib_sm90 = None   # flash_fwd_sm90.cu's library
+_lib_tf32x3 = None  # flash_fwd_tf32x3.cu's library
 _lib_lock = threading.Lock()
 
 
 def kernel_for(dtype, head_dim):
     """The kernel a CUDA launch takes: ``"sm90"`` for bf16 at head_dim
-    64 or 128, ``"ffma"`` for everything else the wrapper accepts."""
+    64 or 128, ``"tf32x3"`` for float32 at head_dim 64, ``"ffma"`` for
+    everything else the wrapper accepts."""
     if dtype == torch.bfloat16 and head_dim in SM90_HEAD_DIMS:
         return "sm90"
+    if dtype == torch.float32 and head_dim == TF32X3_HEAD_DIM:
+        return "tf32x3"
     return "ffma"
 
 
@@ -76,35 +92,53 @@ def bind(lib):
     return lib
 
 
+def _bind_wgmma(lib, kernel):
+    """Declare the C entry points of a wgmma kernel's library
+    (``edl_flash_fwd_<kernel>`` and ``edl_flash_<kernel>_error_string``,
+    the same types for both wgmma kernels)."""
+    p = ctypes.c_void_p
+    fn = getattr(lib, "edl_flash_fwd_" + kernel)
+    fn.argtypes = [p, p, p, p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_float, ctypes.c_int, p]
+    fn.restype = ctypes.c_int
+    what = getattr(lib, "edl_flash_%s_error_string" % kernel)
+    what.argtypes = [ctypes.c_int]
+    what.restype = ctypes.c_char_p
+    return lib
+
+
 def bind_sm90(lib):
     """Declare flash_fwd_sm90.cu's C entry points' types on its
     library."""
-    p = ctypes.c_void_p
-    lib.edl_flash_fwd_sm90.argtypes = [
-        p, p, p, p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_float, ctypes.c_int, p]
-    lib.edl_flash_fwd_sm90.restype = ctypes.c_int
-    lib.edl_flash_sm90_error_string.argtypes = [ctypes.c_int]
-    lib.edl_flash_sm90_error_string.restype = ctypes.c_char_p
-    return lib
+    return _bind_wgmma(lib, "sm90")
+
+
+def bind_tf32x3(lib):
+    """Declare flash_fwd_tf32x3.cu's C entry points' types on its
+    library."""
+    return _bind_wgmma(lib, "tf32x3")
 
 
 def _kernel_lib(kernel="ffma"):
     """The built library of ``kernel`` (nvcc on first use, under a file
     lock)."""
-    global _lib, _lib_sm90
+    global _lib, _lib_sm90, _lib_tf32x3
     with _lib_lock:
         if kernel == "sm90":
             if _lib_sm90 is None:
                 _lib_sm90 = bind_sm90(buildlock.load(_SOURCE_SM90))
             return _lib_sm90
+        if kernel == "tf32x3":
+            if _lib_tf32x3 is None:
+                _lib_tf32x3 = bind_tf32x3(buildlock.load(_SOURCE_TF32X3))
+            return _lib_tf32x3
         if _lib is None:
             _lib = bind(buildlock.load(_SOURCE))
         return _lib
 
 
 def build():
-    """Build (if needed) and load both kernels, one nvcc each, side by
+    """Build (if needed) and load every kernel, one nvcc each, side by
     side; returns ``{kernel: (path, seconds, log)}`` for the build
     report."""
     with ThreadPoolExecutor(len(SOURCES)) as pool:
@@ -183,9 +217,10 @@ def _check(q, k, v):
 
 
 def _launch(q, k, v, causal, sm_scale, kernel=None):
-    """Launch a CUDA kernel on the current stream: ``kernel`` ("sm90" or
-    "ffma"), by default the one :func:`kernel_for` picks. Raises on
-    anything that kernel does not take."""
+    """Launch a CUDA kernel on the current stream: ``kernel`` ("sm90",
+    "tf32x3" or "ffma"), by default the one :func:`kernel_for` picks.
+    Raises on anything that kernel does not take, before any library
+    loads."""
     b, h, s, d = q.shape
     sk = k.shape[2]
     if q.dtype not in _DTYPES:
@@ -206,9 +241,9 @@ def _launch(q, k, v, causal, sm_scale, kernel=None):
             raise ValueError("flash kernel takes 16-byte aligned tensors; "
                              "%s is not" % name)
     kernel = kernel or kernel_for(q.dtype, d)
-    if kernel == "sm90" and kernel_for(q.dtype, d) != "sm90":
-        raise ValueError("the sm90 flash kernel takes bfloat16 at head_dim "
-                         "%s, got %s at %d" % (SM90_HEAD_DIMS, q.dtype, d))
+    if kernel in _TAKES and kernel_for(q.dtype, d) != kernel:
+        raise ValueError("the %s flash kernel takes %s, got %s at %d"
+                         % (kernel, _TAKES[kernel], q.dtype, d))
     if kernel not in SOURCES:
         raise ValueError("no flash kernel %r" % (kernel,))
     lib = _kernel_lib(kernel)
@@ -217,12 +252,12 @@ def _launch(q, k, v, causal, sm_scale, kernel=None):
             b * h, s, sk, d, float(sm_scale), int(bool(causal)))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        if kernel == "sm90":
-            err = lib.edl_flash_fwd_sm90(*args, stream)
-            what = lib.edl_flash_sm90_error_string
-        else:
+        if kernel == "ffma":
             err = lib.edl_flash_fwd(*args, _DTYPES[q.dtype], stream)
             what = lib.edl_flash_error_string
+        else:
+            err = getattr(lib, "edl_flash_fwd_" + kernel)(*args, stream)
+            what = getattr(lib, "edl_flash_%s_error_string" % kernel)
     if err != 0:
         raise RuntimeError("flash kernel %s launch failed: error %d (%s)"
                            % (kernel, err, what(err).decode()))
@@ -255,7 +290,7 @@ def flash_attention(q, k, v, causal=False, sm_scale=None):
 #: kernel launches since the last reset (the main path's proof of use):
 #: the total, and by kernel
 flash_attention.launches = 0
-flash_attention.kernel_launches = {"sm90": 0, "ffma": 0}
+flash_attention.kernel_launches = {name: 0 for name in SOURCES}
 
 
 def reset_launches():

@@ -7,21 +7,33 @@ conftest (which imports it), from the repo root:
     python -m pytest --noconftest -p no:cacheprovider -q -s \\
         tests/test_torch_flash_kernel.py
 
+The tf32x3 kernel's cases alone:
+
+    python -m pytest --noconftest -p no:cacheprovider -q -s \
+        tests/test_torch_flash_kernel.py -k tf32x3
+
 - The kernel that ``kernel_for`` picks against its plain version over
   head_dim 8 to 256, ragged and unequal q/kv lengths, causal and not,
   bf16 and f32, within ``chip_smoke.py``'s tolerance and on its inputs.
-  bf16 at head_dim 64 and 128 runs the wgmma kernel
-  (``flash_fwd_sm90.cu``), the rest the FFMA kernel (``flash_fwd.cu``).
-- Each kernel by name over the shapes the other one serves: the wgmma
-  kernel at head_dim 64 and 128 with ragged, unequal and short kv; the
+  bf16 at head_dim 64 and 128 runs the bf16 wgmma kernel
+  (``flash_fwd_sm90.cu``), f32 at head_dim 64 the TF32 wgmma kernel
+  (``flash_fwd_tf32x3.cu``), the rest the FFMA kernel
+  (``flash_fwd.cu``).
+- Each kernel by name over the shapes the others serve: the wgmma
+  kernels at their head dims with ragged, unequal and short kv; the
   FFMA kernel on bf16 at head_dim 64 and 128.
 - Planted faults: copies of a kernel's source, each with one part
   broken, must fail that same check. This shows the check is tight
   enough to catch them. In flash_fwd.cu: the accumulator's rescale, the
   tile that holds the causal diagonal, the ragged-kv mask. In
   flash_fwd_sm90.cu: the same three, and P.V without P's low half (P
-  rounded once to bf16).
+  rounded once to bf16). In flash_fwd_tf32x3.cu: the same three, and
+  no lo terms anywhere (TF32 alone).
 """
+
+import glob
+import os
+import shutil
 
 import pytest
 import torch
@@ -90,6 +102,17 @@ def test_sm90_kernel_matches_plain_version(gen, shape, causal):
     chip_smoke.check_flash(out, ref, torch.bfloat16, ("sm90", shape, causal))
 
 
+TF32X3_SHAPES = [x for x in SM90_SHAPES if x[4] == 64] + [(1, 3, 65, 130, 64)]
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("shape", TF32X3_SHAPES,
+                         ids=["b%dh%ds%dsk%dd%d" % x for x in TF32X3_SHAPES])
+def test_tf32x3_kernel_matches_plain_version(gen, shape, causal):
+    out, ref = _run(gen, shape, causal, torch.float32, "tf32x3")
+    chip_smoke.check_flash(out, ref, torch.float32, ("tf32x3", shape, causal))
+
+
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
 @pytest.mark.parametrize("d", [64, 128])
 def test_ffma_kernel_on_bf16_at_sm90_head_dims(gen, d, causal):
@@ -110,17 +133,25 @@ FAULTS = [
 ]
 
 
+def _planted(tmp_path, source, line, broken):
+    """Build a copy of ``source`` with ``line`` replaced by ``broken``,
+    beside copies of the headers it includes; returns its library."""
+    with open(source) as f:
+        text = f.read()
+    assert text.count(line) == 1, "the kernel source no longer has %r" % line
+    for header in glob.glob(os.path.join(os.path.dirname(source), "*.cuh")):
+        shutil.copy(header, tmp_path)
+    src = tmp_path / os.path.basename(source)
+    src.write_text(text.replace(line, broken))
+    return buildlock.load(str(src), str(tmp_path))
+
+
 @pytest.mark.parametrize("name,line,broken,shape,causal", FAULTS,
                          ids=[f[0].replace(" ", "_") for f in FAULTS])
 def test_planted_fault_fails_the_check(gen, tmp_path, monkeypatch, name,
                                        line, broken, shape, causal):
-    with open(fa._SOURCE) as f:
-        text = f.read()
-    assert text.count(line) == 1, "the kernel source no longer has %r" % line
-    src = tmp_path / "flash_fwd.cu"
-    src.write_text(text.replace(line, broken))
-    monkeypatch.setattr(fa, "_lib",
-                        fa.bind(buildlock.load(str(src), str(tmp_path))))
+    monkeypatch.setattr(fa, "_lib", fa.bind(
+        _planted(tmp_path, fa._SOURCE, line, broken)))
     out, ref = _run(gen, shape, causal, torch.bfloat16, "ffma")
     with pytest.raises(AssertionError, match="disagrees") as exc:
         chip_smoke.check_flash(out, ref, torch.bfloat16, name)
@@ -147,15 +178,43 @@ SM90_FAULTS = [
                          ids=[f[0].replace(" ", "_") for f in SM90_FAULTS])
 def test_sm90_planted_fault_fails_the_check(gen, tmp_path, monkeypatch, name,
                                             line, broken, shape, causal):
-    with open(fa._SOURCE_SM90) as f:
-        text = f.read()
-    assert text.count(line) == 1, "the kernel source no longer has %r" % line
-    src = tmp_path / "flash_fwd_sm90.cu"
-    src.write_text(text.replace(line, broken))
     monkeypatch.setattr(fa, "_lib_sm90", fa.bind_sm90(
-        buildlock.load(str(src), str(tmp_path))))
+        _planted(tmp_path, fa._SOURCE_SM90, line, broken)))
     out, ref = _run(gen, shape, causal, torch.bfloat16, "sm90")
     with pytest.raises(AssertionError, match="disagrees") as exc:
         chip_smoke.check_flash(out, ref, torch.bfloat16, name)
     print("planted sm90 fault %r at %s causal=%s: %s"
+          % (name, shape, causal, exc.value))
+
+
+# (name, a line of flash_fwd_tf32x3.cu, its broken form, the shape that
+# shows it and whether causal)
+TF32X3_FAULTS = [
+    ("no rescale",
+     "acc[e] = acc[e] * corr[(e >> 1) & 1] + (pv[e] + pv_lo[e]);",
+     "acc[e] = acc[e] + (pv[e] + pv_lo[e]);", (4, 12, 1024, 1024, 64),
+     True),
+    ("no diagonal tile", "const int last = (q0 + BM - 1) / BN + 1;",
+     "const int last = (q0 + BM - 1) / BN;", (4, 12, 1024, 1024, 64), True),
+    ("no ragged mask", "if (edge) ok = kp < sk && (!causal || qp >= kp);",
+     "if (edge) ok = !causal || qp >= kp;", (4, 12, 1024, 24, 64), False),
+    ("no lo terms",
+     "__device__ __forceinline__ float tf32_lo(float x, float hi) "
+     "{ return x - hi; }",
+     "__device__ __forceinline__ float tf32_lo(float x, float hi) "
+     "{ return 0.f; }", (4, 12, 1024, 1024, 64), True),
+]
+
+
+@pytest.mark.parametrize("name,line,broken,shape,causal", TF32X3_FAULTS,
+                         ids=[f[0].replace(" ", "_") for f in TF32X3_FAULTS])
+def test_tf32x3_planted_fault_fails_the_check(gen, tmp_path, monkeypatch,
+                                              name, line, broken, shape,
+                                              causal):
+    monkeypatch.setattr(fa, "_lib_tf32x3", fa.bind_tf32x3(
+        _planted(tmp_path, fa._SOURCE_TF32X3, line, broken)))
+    out, ref = _run(gen, shape, causal, torch.float32, "tf32x3")
+    with pytest.raises(AssertionError, match="disagrees") as exc:
+        chip_smoke.check_flash(out, ref, torch.float32, name)
+    print("planted tf32x3 fault %r at %s causal=%s: %s"
           % (name, shape, causal, exc.value))
