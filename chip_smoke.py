@@ -22,6 +22,14 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    attention went through the ``sm90`` kernel and none through the
    others, and check the served logits against the same model run
    with dense attention;
+3b. backward kernels: hold the flash backward's three kernels
+   (``flash_bwd.cu``: ``bwd_stats``, ``bwd_dq``, ``bwd_dkdv``) against
+   ``flash_bwd_reference`` on the card at the training shapes (GPT-2s
+   b8 h12 s1024 causal, BERT-base b32 h12 s512 full, bf16), in f32, at
+   ragged, unequal and short kv, d128, d96 and the K2 regime; time each
+   kernel, the whole backward, the plain version and SDPA's backward
+   (``torch.autograd.grad`` on a retained graph, a yardstick the port
+   never calls);
 4. decode: start the port's full-width GPT-2s ``lm_teacher`` (f32,
    8 KV slots) on the card and drive its decode plane through the
    ``RpcClient``: 10 concurrent ``lm_generate`` calls (two wait for a
@@ -40,10 +48,22 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    on ``tf32x3``, the path under test, and again with the f32
    attention sent to ``ffma`` (the kernel it replaced), so that one
    run shows what the kernel moved end to end. Prints those, KV bytes,
-   peak memory and a profile of one decode step.
+   peak memory and a profile of one decode step;
+5. train: ``edl_tpu_torch.bench.run_gpt`` at full GPT-2s width (bf16
+   over f32 params, remat, ``adamw(1e-4)``, batch 8 x 1024) with flash
+   and again with dense attention, then ``run_bert`` at bert-base
+   (batch 32 x 512) with flash. Each flash step must launch 24 ``sm90``
+   forwards (remat runs the forward twice) and 12 of each backward
+   kernel, the dense run none; on the same weights and batch the flash
+   first-step loss must be within 1e-2 relative of the dense one and
+   each parameter's gradient within relative Frobenius 2e-2; every
+   loss finite. Prints tokens/s, step ms, implied TFLOP/s, MFU against
+   the H100's 989 TFLOP/s bf16, peak memory and a profile of one step
+   with the device-busy share.
 
-Prints a ``kernels`` JSON line (launches by path), the card's name and
-power limit, and last ``{"ok": true, "device": {...}}``. Exits
+Prints a ``kernels`` JSON line (the forward kernels and the backward's
+three, launches by path), the card's name and power limit, and last
+``{"ok": true, "device": {...}}``. Exits
 non-zero, printing no result, when CUDA is unavailable.
 """
 
@@ -59,12 +79,14 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+from edl_tpu_torch import bench
 from edl_tpu_torch.distill.teacher_server import (INIT_SEED, gpt_teacher,
                                                   lm_teacher)
 from edl_tpu_torch.models import gpt
 from edl_tpu_torch.models.gpt import Gpt
 from edl_tpu_torch.ops import flash_attention as fa
 from edl_tpu_torch.rpc.client import RpcClient
+from edl_tpu_torch.runtime import trainer
 from edl_tpu_torch.serve.admission import AdmissionController
 from edl_tpu_torch.serve.decode_engine import DecodeEngine, _prefill_bucket
 
@@ -114,6 +136,21 @@ KERNEL_TOL = {torch.bfloat16: (1e-4, 2.0 ** -7),
 # it, and the difference passes through 12 bf16 layers. Allowed: four
 # bf16 ulps at |logits| < 8 (4 * 2**-5); the run checks the magnitude.
 SERVE_TOL = 4 * 2.0 ** -5
+# the backward kernels vs flash_bwd_reference on the same inputs,
+# elementwise: |got - ref| <= rtol * |ref| + atol. f32: the reference
+# suite's gradient tolerance (tests/test_flash_attention.py:61), atol
+# 1e-4 and rtol 1e-4. bf16: both compute in f32 from the same bf16
+# inputs and round once at the end, so one bf16 ulp (2**-7 of the value)
+# plus, where terms cancel, 2**-9 of the gradient's largest magnitude.
+BWD_TOL = {torch.float32: lambda ref: (1e-4, 1e-4),
+           torch.bfloat16: lambda ref: (2.0 ** -9 * ref.abs().max().item(),
+                                        2.0 ** -7)}
+# the train phase: GPT-2s training as bench.py runs it, a few steps
+TRAIN_WARMUP, TRAIN_ITERS = 2, 8
+# flash vs dense attention on the same weights and batch, both in bf16
+# activations: the first-step loss within 1e-2 relative, each parameter's
+# gradient within relative Frobenius 2e-2
+TRAIN_LOSS_RTOL, TRAIN_GRAD_RTOL = 1e-2, 2e-2
 
 
 def card():
@@ -131,19 +168,23 @@ def build(gpu):
     """Phase 1: nvcc on each kernel source (side by side), with ptxas's
     register report."""
     t0 = time.monotonic()
-    for name, (path, secs, text) in fa.build().items():
+    reports = fa.build()
+    for name, (path, secs, text) in reports.items():
         log("build: %s %s in %.1fs [%s]" % (name, os.path.basename(path),
                                              secs, gpu))
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 log("  " + line.strip())
-    log("build: %d kernels in %.1fs of wall time"
-        % (len(fa.SOURCES), time.monotonic() - t0))
+    log("build: %d kernel sources in %.1fs of wall time"
+        % (len(reports), time.monotonic() - t0))
 
 
-def only(kernel, n):
-    """Launch counts by kernel: ``n`` of ``kernel``, none of the rest."""
-    return {name: n if name == kernel else 0 for name in fa.SOURCES}
+def only(kernel, n, **more):
+    """Launch counts by kernel: ``n`` of ``kernel`` and ``more`` of the
+    kernels it names, none of the rest."""
+    want = dict(more, **{kernel: n})
+    return {name: want.get(name, 0)
+            for name in fa.flash_attention.kernel_launches}
 
 
 @contextlib.contextmanager
@@ -338,6 +379,141 @@ def kernel_phase(gpu):
         results.append(row)
     del flush
     return results
+
+
+def check_grads(got, want, dtype, case):
+    """Hold the backward kernels' (dq, dk, dv) against the plain
+    version's within ``BWD_TOL``; returns (max abs error, worst excess
+    over the check as a share of its atol)."""
+    err, margin = 0.0, 0.0
+    for name, out, ref in zip(("dq", "dk", "dv"), got, want):
+        atol, rtol = BWD_TOL[dtype](ref.float())
+        diff = (out.float() - ref.float()).abs()
+        excess = (diff - rtol * ref.float().abs()).max().item()
+        if not torch.isfinite(out).all() or not excess <= atol:
+            raise AssertionError(
+                "flash backward disagrees with its plain version: %s %s "
+                "max_abs_err %g, max of |got - ref| - %g |ref| is %g > %g"
+                % (case, name, diff.max().item(), rtol, excess, atol))
+        err = max(err, diff.max().item())
+        margin = max(margin, excess / atol)
+    return err, margin
+
+
+def bwd_bound_ms(b, h, s, sk, d, dtype, causal, stage):
+    """Least time for one stage of the backward (``"bwd_stats"``,
+    ``"bwd_dq"``, ``"bwd_dkdv"``, or ``"all"``: the whole function): its
+    inputs read once and outputs written once over the memory rate, or
+    its products (2 d flops per (query, key) pair each; under causal,
+    row i meets min(i + 1, sk) keys) over the input type's peak (f32:
+    three TF32 passes, the 3xTF32 split, as the forward's bound). The
+    whole backward needs five products (s, dp, dv, dq, dk), reads q, k,
+    v, out, g and writes dq, dk, dv; the stats kernel one product (s),
+    dq three (s, dp, dq), dk/dv four (s, dp, dv, dk), with lse and
+    delta (f32) between them. Returns (ms, "bytes" or "operations")."""
+    item = torch.tensor([], dtype=dtype).element_size()
+    keys = sum(min(i + 1, sk) for i in range(s)) if causal else s * sk
+    qs, ks, st = s * d * item, sk * d * item, s * 4   # one (b, h)'s rows
+    products, nbytes = {
+        "all": (5, 3 * qs + 2 * ks + qs + 2 * ks),
+        "bwd_stats": (1, 3 * qs + ks + 2 * st),
+        "bwd_dq": (3, 2 * qs + 2 * ks + 2 * st + qs),
+        "bwd_dkdv": (4, 2 * qs + 2 * ks + 2 * st + 2 * ks),
+    }[stage]
+    flops = 2 * d * keys * products * b * h
+    t_ops = (3 * flops / PEAK_TF32 if dtype == torch.float32
+             else flops / PEAK_FLOPS[dtype])
+    t_bytes = nbytes * b * h / PEAK_BYTES_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def bwd_phase(gpu):
+    """Phase 3b: the backward's three kernels against
+    ``flash_bwd_reference`` on the same (q, k, v, out, g), timed: each
+    kernel alone (on the lse and delta the stats kernel made), the three
+    in turn (``flash_bwd``), the plain version, and SDPA's backward."""
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [  # (b, h, s, sk, d, dtype, causal, what)
+        (8, 12, 1024, 1024, 64, bf16, True, "gpt2s train"),
+        (32, 12, 512, 512, 64, bf16, False, "bert-base train"),
+        (1, 12, 1024, 1024, 64, f32, True, "f32"),
+        (4, 12, 1000, 1000, 64, bf16, True, "ragged sk"),
+        (4, 12, 1000, 1000, 64, f32, True, "ragged sk"),
+        (4, 12, 100, 1000, 64, bf16, False, "sk != s"),
+        (4, 12, 100, 1000, 64, bf16, True, "sk != s"),
+        (4, 12, 1024, 24, 64, bf16, False, "short sk"),
+        (4, 6, 1024, 1024, 128, bf16, True, "d128"),
+        (4, 8, 1024, 1024, 96, bf16, True, "d96"),
+        (1, 2, 16640, 16640, 64, bf16, True, "K+V > 4 MiB"),
+    ]
+    rows = []
+    for b, h, s, sk, d, dtype, causal, what in cases:
+        scale = d ** -0.5
+        q, k, v = flash_inputs(b, h, s, sk, d, dtype, gen)
+        g = torch.randn((b, h, s, d), generator=gen, device="cuda").to(dtype)
+        out = fa.flash_attention(q, k, v, causal)
+        got = fa.flash_bwd(q, k, v, out, g, causal, scale)
+        torch.cuda.synchronize()
+        want = fa.flash_bwd_reference(q, k, v, out, g, causal, scale)
+        case = (b, h, s, sk, d, str(dtype).split(".")[-1], causal)
+        err, margin = check_grads(got, want, dtype, case)
+        lse, delta = fa._bwd_stats(q, k, out, g, causal, scale)
+        stats_want = fa.flash_bwd_stats_reference(q, k, out, g, causal,
+                                                  scale)
+        stats_err = max((a - w).abs().max().item()
+                        for a, w in zip((lse, delta), stats_want))
+        if not stats_err <= 1e-3 * max(1.0, stats_want[1].abs().max()
+                                       .item()):
+            raise AssertionError("bwd_stats disagrees with its plain "
+                                 "version: %s max_abs_err %g"
+                                 % (case, stats_err))
+        reps = 10 if s <= 1024 else 3
+        stage_ms = {
+            "bwd_stats": time_ms(lambda: fa._bwd_stats(
+                q, k, out, g, causal, scale), flush, reps),
+            "bwd_dq": time_ms(lambda: fa._bwd_dq(
+                q, k, v, g, lse, delta, causal, scale), flush, reps),
+            "bwd_dkdv": time_ms(lambda: fa._bwd_dkdv(
+                q, k, v, g, lse, delta, causal, scale), flush, reps),
+            "all": time_ms(lambda: fa.flash_bwd(
+                q, k, v, out, g, causal, scale), flush, reps),
+        }
+        plain_ms = time_ms(lambda: fa.flash_bwd_reference(
+            q, k, v, out, g, causal, scale), flush, max(2, reps // 4))
+        plain_stats_ms = time_ms(lambda: fa.flash_bwd_stats_reference(
+            q, k, out, g, causal, scale), flush, max(2, reps // 4))
+        leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+        sdpa_out = torch.nn.functional.scaled_dot_product_attention(
+            *leaves, is_causal=causal)
+        library_ms = time_ms(lambda: torch.autograd.grad(
+            sdpa_out, leaves, g, retain_graph=True), flush, reps)
+        del sdpa_out, leaves
+        bounds = {stage: bwd_bound_ms(b, h, s, sk, d, dtype, causal, stage)
+                  for stage in stage_ms}
+        row = dict(shape=[b, h, s, sk, d], dtype=case[5], causal=causal,
+                   what=what, max_abs_err=err, excess_over_atol=margin,
+                   stats_max_abs_err=stats_err, ms=stage_ms,
+                   plain_ms=plain_ms, plain_stats_ms=plain_stats_ms,
+                   library_ms=library_ms,
+                   bound_ms={k_: v_[0] for k_, v_ in bounds.items()},
+                   bound_by={k_: v_[1] for k_, v_ in bounds.items()})
+        log("kernel flash_bwd b=%d h=%d s=%d sk=%d d=%d %s %s (%s): dq/dk/dv "
+            "max_abs_err %.3g (worst excess %.3g of the atol), lse/delta "
+            "%.3g; stats %.4f ms, dq %.4f ms, dkdv %.4f ms, all three "
+            "%.4f ms (bound %.2f us, %s); plain %.4f ms (stats %.4f ms), "
+            "sdpa backward %.4f ms [%s]"
+            % (b, h, s, sk, d, case[5], "causal" if causal else "full", what,
+               err, margin, stats_err, stage_ms["bwd_stats"],
+               stage_ms["bwd_dq"], stage_ms["bwd_dkdv"], stage_ms["all"],
+               bounds["all"][0] * 1e3, bounds["all"][1], plain_ms,
+               plain_stats_ms, library_ms, gpu))
+        rows.append(row)
+        del q, k, v, g, out, got, want
+    del flush
+    return rows
 
 
 def slice_phase(gpu):
@@ -757,6 +933,134 @@ def decode_phase(gpu):
     return by_path
 
 
+def train_phase(gpu):
+    """Phase 5: GPT-2s and BERT-base training through the bench's LM loop
+    (``create_model_and_loss`` -> ``make_train_step`` -> ``adamw``), with
+    flash and with dense attention. Returns the flash launches by path."""
+    layers = GPT2S["num_layers"]
+    by_path, first_loss = {}, {}
+    for kind, flash in (("gpt", True), ("gpt", False), ("bert", True)):
+        run = bench.run_gpt if kind == "gpt" else bench.run_bert
+        stats = {}
+        torch.cuda.empty_cache()
+        fa.reset_launches()
+        result = run(warmup=TRAIN_WARMUP, iters=TRAIN_ITERS, flash=flash,
+                     device="cuda", stats=stats)
+        launches = dict(fa.flash_attention.kernel_launches)
+        steps = len(stats["losses"])
+        path = "train_%s%s" % (kind, "" if flash else "_dense")
+        want = (only("sm90", 2 * layers * steps,
+                     **{k: layers * steps for k in fa.BWD_KERNELS})
+                if flash else only("sm90", 0))
+        log("train: %s %s: %.1f tokens/s per card, %.3f ms per step (%d "
+            "timed of %d), implied %.1f TFLOP/s, MFU %.4f of 989 TFLOP/s "
+            "bf16; peak device memory %.2f GB; losses %s; flash launches %s "
+            "[%s]" % (kind, "flash" if flash else "dense",
+                      stats["tokens_per_s"], stats["step_ms"],
+                      stats["iters"], steps, stats["implied_tflops"],
+                      stats["mfu"], stats["peak_bytes"] / 1e9,
+                      ["%.4f" % x for x in stats["losses"]], launches, gpu))
+        log("train: %s [%s]" % (json.dumps(result), gpu))
+        if launches != want:
+            raise AssertionError("%s: flash launches %s over %d steps, want "
+                                 "%s" % (path, launches, steps, want))
+        if not np.isfinite(stats["losses"]).all():
+            raise AssertionError("%s: non-finite loss %s"
+                                 % (path, stats["losses"]))
+        if flash:
+            by_path[path] = launches
+            step_profile(stats, "train: one %s step (flash)" % kind, gpu)
+        first_loss[kind, flash] = stats["losses"][0]
+        del stats
+    rel = abs(first_loss["gpt", True] - first_loss["gpt", False]) / abs(
+        first_loss["gpt", False])
+    log("train: first-step loss flash %.6f, dense %.6f, relative %.3g "
+        "(limit %g) [%s]" % (first_loss["gpt", True],
+                             first_loss["gpt", False], rel, TRAIN_LOSS_RTOL,
+                             gpu))
+    if not rel <= TRAIN_LOSS_RTOL:
+        raise AssertionError("flash and dense first-step losses differ by "
+                             "%g relative" % rel)
+    grad_parity(gpu)
+    return by_path
+
+
+def step_profile(stats, what, gpu):
+    """One more step of a bench run, profiled: device time by kernel and
+    its share of the step's time (the device-busy share)."""
+    total_us = log_profile(stats["dispatch"], what, gpu, top=10)
+    if total_us:
+        log("%s: device busy %.1f%% of the %.3f ms step [%s]"
+            % (what, 100.0 * total_us / 1e3 / stats["step_ms"],
+               stats["step_ms"], gpu))
+
+
+def grad_parity(gpu):
+    """The first step's gradients on the same GPT-2s weights and batch as
+    the bench (seed 0): bf16 with flash, bf16 dense, and dense in f32 (the
+    exact gradient's stand-in). Each parameter's flash gradient must be
+    within relative Frobenius TRAIN_GRAD_RTOL of the dense one, except:
+
+    - the attention query and key projections (kernel and query bias):
+      their gradients come from dq and dk, where ds = p (dp - delta)
+      cancels, and delta = rowsum(g * out) is taken from the output
+      rounded to bf16, as the JAX package's ``_flash_bwd`` (and
+      FlashAttention-2) take it; the dense path differentiates its f32
+      probabilities instead. So the flash path's bf16 rounding there is
+      amplified, not wrong: these are held to the f32 gradient, within
+      TRAIN_GRAD_RTOL plus twice the dense bf16 path's own distance from
+      it (a fault in a kernel gives errors of order 1);
+    - a key bias, reported, not held: its true gradient is zero (adding
+      one constant to a row's scores does not change the softmax), so
+      every path gives rounding noise there."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    ids = torch.randint(0, GPT2S["vocab_size"], (8, GPT2S["seq_len"]),
+                        generator=gen, device="cuda")
+    grads = {}
+    for dtype, flash in ((torch.bfloat16, True), (torch.bfloat16, False),
+                         (torch.float32, False)):
+        model = Gpt(dtype=dtype, remat=True, use_flash=flash, device="cuda")
+        model, params, loss_fn = gpt.create_model_and_loss(model=model)
+        fa.reset_launches()
+        _, _, got = trainer._value_and_grad(
+            lambda p: loss_fn(p, {"input_ids": ids}, None), params, False)
+        grads[dtype, flash] = {n: g.float() for n, g in got.items()}
+        del model, params, loss_fn
+    flash, dense = grads[torch.bfloat16, True], grads[torch.bfloat16, False]
+    exact = grads[torch.float32, False]
+    rel = lambda a, b: ((a - b).norm() / b.norm()).item()
+    worst, worst_qk, noise = (0.0, ""), (0.0, 0.0, ""), []
+    for name, g in flash.items():
+        if name.endswith("attention.key.bias"):
+            noise.append("%.3g/%.3g" % (g.norm().item(),
+                                        dense[name].norm().item()))
+            continue
+        if ".attention.query." in name or ".attention.key." in name:
+            to_exact, dense_to_exact = rel(g, exact[name]), rel(
+                dense[name], exact[name])
+            limit = TRAIN_GRAD_RTOL + 2 * dense_to_exact
+            if not to_exact <= limit:
+                raise AssertionError(
+                    "gradient of %s: flash vs f32 relative Frobenius %g > "
+                    "%g (the dense bf16 path's is %g)"
+                    % (name, to_exact, limit, dense_to_exact))
+            worst_qk = max(worst_qk, (to_exact, dense_to_exact, name))
+            continue
+        err = rel(g, dense[name])
+        if not err <= TRAIN_GRAD_RTOL:
+            raise AssertionError("gradient of %s: flash vs dense relative "
+                                 "Frobenius %g > %g"
+                                 % (name, err, TRAIN_GRAD_RTOL))
+        worst = max(worst, (err, name))
+    log("train: first-step gradients flash vs dense (bf16): worst relative "
+        "Frobenius %.4g (%s, limit %g); query/key projections vs the f32 "
+        "gradient: worst %.4g, the dense bf16 path's %.4g (%s); key-bias "
+        "gradient norms flash/dense (true gradient 0) %s [%s]"
+        % (worst[0], worst[1], TRAIN_GRAD_RTOL, worst_qk[0], worst_qk[1],
+           worst_qk[2], noise[:3], gpu))
+    del grads
+
+
 def load_run(endpoint, prompts):
     """Closed loop: LM_LOAD_CLIENTS threads, each with its own
     ``RpcClient`` (a blocking call is dispatched inline, so one
@@ -839,7 +1143,8 @@ def time_calls(fn, reps):
 
 def log_profile(fn, what, gpu, top=8):
     """torch.profiler over one call of ``fn``: device time by kernel and
-    the host's aten op calls (nested calls included)."""
+    the host's aten op calls (nested calls included). Returns the device
+    time in microseconds (0 when none was recorded)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -855,7 +1160,7 @@ def log_profile(fn, what, gpu, top=8):
     if not total_us:
         log("%s: torch.profiler recorded no device time (%d aten op calls "
             "on the host)" % (what, ops))
-        return
+        return 0
     log("%s: profiled device time %.3f ms in %d kernel launches; %d aten "
         "op calls on the host [%s]" % (what, total_us / 1e3,
                                        sum(e.count for e in kernels), ops,
@@ -863,6 +1168,7 @@ def log_profile(fn, what, gpu, top=8):
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
         log("  %8.3f ms x%-4d %s" % (e.self_device_time_total / 1e3,
                                       e.count, e.key[:90]))
+    return total_us
 
 
 def decode_step_profile(engine, what, gpu):
@@ -947,8 +1253,10 @@ def main():
     log("device: %s [%s]" % (torch.cuda.get_device_name(0), gpu))
     build(gpu)
     kernel_rows = kernel_phase(gpu)
+    bwd_rows = bwd_phase(gpu)
     by_path = {"predict": slice_phase(gpu)}
     by_path.update(decode_phase(gpu))
+    by_path.update(train_phase(gpu))
     repo = os.path.dirname(os.path.abspath(__file__))
     # each kernel's numbers at its main path's shape: sm90 at the served
     # predict (bf16 causal, b4); tf32x3 at lm_teacher's longest prefill,
@@ -975,6 +1283,33 @@ def main():
             "library_ms": row["library_ms"], "ffma_ms": row["ffma_ms"],
             "device_ms": row["device_ms"],
             "shapes": [r for r in kernel_rows if r["kernel"] == name],
+        })
+    # the backward's three kernels at the GPT-2s training shape; "plain"
+    # is flash_bwd_reference (the whole backward; pass 1 alone for the
+    # stats kernel), "library" SDPA's whole backward
+    train = next(r for r in bwd_rows if r["what"] == "gpt2s train")
+    for name in fa.BWD_KERNELS:
+        launches = {path: counts[name] for path, counts in by_path.items()}
+        kernels.append({
+            "name": "flash_" + name, "route": "cuda",
+            "source": os.path.relpath(fa._SOURCE_BWD, repo),
+            "replaces": "edl_tpu/ops/flash_attention.py:254",
+            "replaces_note": "_flash_bwd, an XLA lax.scan custom_vjp "
+                             "backward, not Pallas",
+            "launches": sum(launches.values()),
+            "launches_by_path": launches,
+            "max_abs_err": (train["stats_max_abs_err"]
+                            if name == "bwd_stats" else
+                            train["max_abs_err"]),
+            "ms": train["ms"][name],
+            "plain_ms": (train["plain_stats_ms"] if name == "bwd_stats"
+                         else train["plain_ms"]),
+            "bound_ms": train["bound_ms"][name],
+            "bound_by": train["bound_by"][name],
+            "library_ms": train["library_ms"],
+            "backward_ms": train["ms"]["all"],
+            "backward_bound_ms": train["bound_ms"]["all"],
+            "shapes": bwd_rows,
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(gpu, flush=True)

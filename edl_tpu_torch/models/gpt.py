@@ -48,6 +48,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 from torch.func import functional_call
+from torch.utils.checkpoint import checkpoint
 
 from edl_tpu_torch.ops import quant
 from edl_tpu_torch.ops.attention import attention_context
@@ -221,18 +222,22 @@ class Gpt(nn.Module):
 
     The defaults are GPT-2 small's widths at a 32000 vocab (the JAX
     package's ``Gpt()``). ``use_flash``: None = auto-dispatch, True =
-    force flash, False = force dense. ``device`` None means CUDA (and
-    raises without one). Parameters start uninitialized: call
-    :meth:`init_weights` with a generator, or load a state
-    (:func:`params_from_flax`)."""
+    force flash, False = force dense. ``remat``: recompute each block in
+    the backward (``torch.utils.checkpoint``, non-reentrant) on the
+    full-sequence path, never on the cache paths, as the JAX package's
+    ``nn.remat``. ``device`` None means CUDA (and raises without one).
+    Parameters start uninitialized: call :meth:`init_weights` with a
+    generator, or load a state (:func:`params_from_flax`)."""
 
     def __init__(self, vocab_size=32000, num_layers=12, d_model=768,
                  num_heads=12, mlp_dim=3072, max_len=1024,
-                 dtype=torch.bfloat16, use_flash=None, device=None):
+                 dtype=torch.bfloat16, use_flash=None, remat=False,
+                 device=None):
         super().__init__()
         device = resolve_device(device)
         self.dtype, self.max_len, self.num_layers = dtype, max_len, num_layers
         self.vocab_size, self.num_heads = vocab_size, num_heads
+        self.d_model, self.remat = d_model, remat
         self.head_dim = d_model // num_heads
         self.word_embed = Embed(vocab_size, d_model, device)
         self.pos_embed = Embed(max_len, d_model, device)
@@ -289,15 +294,34 @@ class Gpt(nn.Module):
         x = x + self.pos_embed.embedding.to(self.dtype)[pos]
         kw = dict(decode=decode, decode_index=decode_index, prefill=prefill,
                   prefill_offset=prefill_offset)
+        # remat is a training lever: the cache paths never take it
+        use_remat = self.remat and cache is None and torch.is_grad_enabled()
         for i in range(self.num_layers):
             name = "block_%d" % i
             if cache is not None:
                 kw["cache"] = (cache[name + ".attention.k"],
                                cache[name + ".attention.v"])
-            x = getattr(self, name)(x, **kw)
+            if use_remat:
+                x = remat_call(getattr(self, name), x)
+            else:
+                x = getattr(self, name)(x, **kw)
         x = self.ln_final(x)
         # weight-tied LM head in f32
         return x.float() @ self.word_embed.embedding.float().t()
+
+
+def remat_call(module, *args):
+    """``module(*args)``, recomputed in the backward: a non-reentrant
+    ``torch.utils.checkpoint`` that passes the module's parameters in
+    explicitly. The recompute runs outside any ``functional_call`` that
+    substituted them (the train step's), so it puts the same tensors back
+    itself."""
+    names, values = zip(*module.named_parameters())
+
+    def run(args, values):
+        return functional_call(module, dict(zip(names, values)), args)
+
+    return checkpoint(run, args, values, use_reentrant=False)
 
 
 def _position(value, span, max_len, what):
@@ -433,6 +457,39 @@ def gpt_tiny(**kw):
     kw.setdefault("vocab_size", 256)
     kw.setdefault("max_len", 128)
     return Gpt(**kw)
+
+
+def create_model_and_loss(model=None, dummy_batch=1, dummy_seq=16,
+                          device=None, seed=0, **kw):
+    """(model, params, loss_fn) for the train-step builders of
+    ``runtime/trainer.py`` — next-token cross-entropy over
+    ``batch["input_ids"]`` (shift inside), as the JAX package's.
+
+    ``model`` defaults to ``gpt_tiny(device=device, **kw)``; its weights
+    come from a generator seeded ``seed`` (``dummy_batch`` and
+    ``dummy_seq`` size the JAX package's init trace and are accepted for
+    its signature). ``params`` is the flat flax-named state
+    (``{name: f32 tensor}``), the layout :func:`params_from_flax`
+    produces. ``loss_fn(params, batch, rng)`` takes ids as a numpy array
+    or a tensor and returns the f32 mean loss over ``logits[:, :-1]``
+    against ``ids[:, 1:]``; ``rng`` is unused (no dropout)."""
+    del dummy_batch, dummy_seq
+    model = model or gpt_tiny(device=device, **kw)
+    dev = next(model.parameters()).device
+    model.init_weights(torch.Generator(device=dev).manual_seed(seed))
+    params = {name: p.detach().clone()
+              for name, p in model.named_parameters()}
+
+    def loss_fn(params, batch, rng):
+        ids = torch.as_tensor(batch["input_ids"],
+                              device=_state_device(params)).long()
+        logits = functional_call(model, params, (ids,))
+        # predict token t+1 from the prefix <= t
+        return F.cross_entropy(
+            logits[:, :-1].reshape(-1, logits.shape[-1]).float(),
+            ids[:, 1:].reshape(-1))
+
+    return model, params, loss_fn
 
 
 def synthetic_lm_batch(batch_size, seq_len=32, vocab_size=256, seed=0):

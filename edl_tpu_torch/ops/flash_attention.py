@@ -1,5 +1,5 @@
-"""Flash attention forward: three hand-written CUDA kernels and their
-plain PyTorch version.
+"""Flash attention: three hand-written CUDA forward kernels, a CUDA
+backward in three kernels, and their plain PyTorch versions.
 
 The port's counterpart of ``edl_tpu/ops/flash_attention.py``. Exact
 attention that never materializes the [seq, seq] score matrix:
@@ -25,9 +25,22 @@ attention that never materializes the [seq, seq] score matrix:
   same mask and online-softmax convention), which is also what the
   tests and ``chip_smoke.py`` hold every kernel against.
 
+The gradient (:class:`FlashAttentionFunction`, a
+``torch.autograd.Function`` in place of the JAX package's
+``custom_vjp``) saves q, k, v and the output, and recomputes:
+
+- on a CUDA tensor, ``csrc/flash_bwd.cu``'s three kernels, in
+  FlashAttention-2's order: ``bwd_stats`` (each q row's lse over the
+  masked scores, and delta = rowsum(g * out)), ``bwd_dq`` (one block per
+  q tile, looping over kv tiles) and ``bwd_dkdv`` (one block per kv
+  tile, looping over q tiles); f32 FFMA on the CUDA cores;
+- on a CPU tensor, :func:`flash_bwd_reference`, the port of the JAX
+  package's ``_flash_bwd`` step by step.
+
 There is no fallback between any of them: a CUDA tensor launches the
-kernel :func:`kernel_for` names or raises. The backward is not ported
-yet (serving needs none), so asking for a gradient raises.
+kernel :func:`kernel_for` names (or the backward's three) or raises.
+Under ``torch.inference_mode()`` or ``no_grad`` the forward builds no
+graph and saves nothing.
 
 Layout: q, k, v are [batch, heads, seq, head_dim] (``mha`` takes the
 model code's [batch, seq, heads, head_dim]).
@@ -48,8 +61,11 @@ _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 _SOURCE = os.path.join(_CSRC, "flash_fwd.cu")
 _SOURCE_SM90 = os.path.join(_CSRC, "flash_fwd_sm90.cu")
 _SOURCE_TF32X3 = os.path.join(_CSRC, "flash_fwd_tf32x3.cu")
-#: each kernel's source, by the name kernel_for gives it
+_SOURCE_BWD = os.path.join(_CSRC, "flash_bwd.cu")
+#: each forward kernel's source, by the name kernel_for gives it
 SOURCES = {"sm90": _SOURCE_SM90, "tf32x3": _SOURCE_TF32X3, "ffma": _SOURCE}
+#: the backward's three kernels, all in _SOURCE_BWD, by launch-count name
+BWD_KERNELS = ("bwd_stats", "bwd_dq", "bwd_dkdv")
 #: head_dim the kernels take: a multiple of 8 (16-byte bf16 rows), <= 256
 HEAD_MULT = 8
 MAX_HEAD_DIM = 256
@@ -66,6 +82,7 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _lib = None        # flash_fwd.cu's library
 _lib_sm90 = None   # flash_fwd_sm90.cu's library
 _lib_tf32x3 = None  # flash_fwd_tf32x3.cu's library
+_lib_bwd = None    # flash_bwd.cu's library
 _lib_lock = threading.Lock()
 
 
@@ -119,11 +136,29 @@ def bind_tf32x3(lib):
     return _bind_wgmma(lib, "tf32x3")
 
 
+def bind_bwd(lib):
+    """Declare flash_bwd.cu's C entry points' types on its library."""
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    dims = [i, i, i, i, f, i, i, p]  # bh s sk d sm_scale causal dtype stream
+    lib.edl_flash_bwd_stats.argtypes = [p, p, p, p, p, p] + dims
+    lib.edl_flash_bwd_dq.argtypes = [p, p, p, p, p, p, p] + dims
+    lib.edl_flash_bwd_dkdv.argtypes = [p, p, p, p, p, p, p, p] + dims
+    for name in ("stats", "dq", "dkdv"):
+        getattr(lib, "edl_flash_bwd_" + name).restype = ctypes.c_int
+    lib.edl_flash_bwd_error_string.argtypes = [ctypes.c_int]
+    lib.edl_flash_bwd_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 def _kernel_lib(kernel="ffma"):
-    """The built library of ``kernel`` (nvcc on first use, under a file
-    lock)."""
-    global _lib, _lib_sm90, _lib_tf32x3
+    """The built library of ``kernel`` (a forward kernel's name, or
+    ``"bwd"``; nvcc on first use, under a file lock)."""
+    global _lib, _lib_sm90, _lib_tf32x3, _lib_bwd
     with _lib_lock:
+        if kernel == "bwd":
+            if _lib_bwd is None:
+                _lib_bwd = bind_bwd(buildlock.load(_SOURCE_BWD))
+            return _lib_bwd
         if kernel == "sm90":
             if _lib_sm90 is None:
                 _lib_sm90 = bind_sm90(buildlock.load(_SOURCE_SM90))
@@ -138,14 +173,15 @@ def _kernel_lib(kernel="ffma"):
 
 
 def build():
-    """Build (if needed) and load every kernel, one nvcc each, side by
-    side; returns ``{kernel: (path, seconds, log)}`` for the build
-    report."""
-    with ThreadPoolExecutor(len(SOURCES)) as pool:
+    """Build (if needed) and load every kernel source, one nvcc each,
+    side by side; returns ``{name: (path, seconds, log)}`` for the build
+    report, the backward's source under ``"bwd"``."""
+    sources = dict(SOURCES, bwd=_SOURCE_BWD)
+    with ThreadPoolExecutor(len(sources)) as pool:
         futures = {name: pool.submit(buildlock.build, src)
-                   for name, src in SOURCES.items()}
+                   for name, src in sources.items()}
         reports = {name: f.result() for name, f in futures.items()}
-    for name in SOURCES:
+    for name in sources:
         _kernel_lib(name)
     return reports
 
@@ -199,6 +235,70 @@ def blockwise_reference(q, k, v, causal, sm_scale, block_k=512):
     return (acc / torch.clamp_min(l, 1e-30)[..., None]).to(q.dtype)
 
 
+def _row_stats(q32, kb, n_blocks, block_k, s, sk, causal):
+    """The backward's pass 1: each q row's running max m and sum l of
+    exp(scores - m) over the masked scores (l not clamped)."""
+    b, h = q32.shape[:2]
+    m = torch.full((b, h, s), _NEG_INF, dtype=torch.float32,
+                   device=q32.device)
+    l = torch.zeros((b, h, s), dtype=torch.float32, device=q32.device)
+    for ki in range(n_blocks):
+        mask = _block_mask(ki, block_k, s, sk, causal, q32.device)
+        scores = torch.einsum("bhqd,bhkd->bhqk", q32, kb[ki])
+        scores = torch.where(mask, scores, _NEG_INF)
+        m_new = torch.maximum(m, scores.amax(-1))
+        l = l * torch.exp(m - m_new) + torch.where(
+            mask, torch.exp(scores - m_new[..., None]), 0.0).sum(-1)
+        m = m_new
+    return m, l
+
+
+def flash_bwd_reference(q, k, v, out, g, causal, sm_scale, block_k=512):
+    """The plain version of the backward kernels: the port of the JAX
+    package's ``_flash_bwd``, step by step. Pass 1 recomputes the row
+    statistics (m, l), l clamped at 1e-30, and delta = rowsum(g * out);
+    pass 2, per kv block: dv = p^T g, dp = g v^T, ds = p (dp - delta),
+    dq += sm_scale ds k, dk = ds^T (q sm_scale). Memory stays O(seq x
+    (d + block_k)). Returns (dq, dk, dv) in the inputs' dtype."""
+    b, h, s, d = q.shape
+    sk = k.shape[2]
+    q32 = q.float() * sm_scale
+    g32 = g.float()
+    kb, vb, n_blocks = _block_layout(k, v, block_k)
+    m, l = _row_stats(q32, kb, n_blocks, block_k, s, sk, causal)
+    l = torch.clamp_min(l, 1e-30)
+    delta = (g32 * out.float()).sum(-1)
+    dq = torch.zeros((b, h, s, d), dtype=torch.float32, device=q.device)
+    dks, dvs = [], []
+    for ki in range(n_blocks):
+        mask = _block_mask(ki, block_k, s, sk, causal, q.device)
+        scores = torch.einsum("bhqd,bhkd->bhqk", q32, kb[ki])
+        scores = torch.where(mask, scores, _NEG_INF)
+        p = torch.exp(scores - m[..., None]) / l[..., None]
+        p = torch.where(mask, p, 0.0)
+        dvs.append(torch.einsum("bhqk,bhqd->bhkd", p, g32))
+        dp = torch.einsum("bhqd,bhkd->bhqk", g32, vb[ki])
+        ds = p * (dp - delta[..., None])
+        dq = dq + sm_scale * torch.einsum("bhqk,bhkd->bhqd", ds, kb[ki])
+        # q32 carries one sm_scale: dk_j = sm_scale * sum_i ds_ij q_i
+        dks.append(torch.einsum("bhqk,bhqd->bhkd", ds, q32))
+    dk = torch.cat(dks, dim=2)[:, :, :sk]
+    dv = torch.cat(dvs, dim=2)[:, :, :sk]
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_bwd_stats_reference(q, k, out, g, causal, sm_scale, block_k=512):
+    """The plain version of the ``bwd_stats`` kernel: (lse, delta), f32
+    [b, h, s], with lse = m + log(max(l, 1e-30)) from the backward's
+    pass 1 and delta = rowsum(g * out)."""
+    s, sk = q.shape[2], k.shape[2]
+    kb, _, n_blocks = _block_layout(k, k, block_k)
+    m, l = _row_stats(q.float() * sm_scale, kb, n_blocks, block_k, s, sk,
+                      causal)
+    return (m + torch.log(torch.clamp_min(l, 1e-30)),
+            (g.float() * out.float()).sum(-1))
+
+
 def _check(q, k, v):
     if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
         raise ValueError("flash_attention takes [batch, heads, seq, dim] "
@@ -216,11 +316,11 @@ def _check(q, k, v):
                          % (q.dtype, k.dtype, v.dtype))
 
 
-def _launch(q, k, v, causal, sm_scale, kernel=None):
-    """Launch a CUDA kernel on the current stream: ``kernel`` ("sm90",
-    "tf32x3" or "ffma"), by default the one :func:`kernel_for` picks.
-    Raises on anything that kernel does not take, before any library
-    loads."""
+def _check_launch(q, k, tensors):
+    """Raise on what the CUDA kernels do not take: the dtype, head_dim,
+    batch*heads and lengths of q [b, h, s, d] and k [b, h, sk, d], and
+    each of ``tensors`` ({name: tensor}) not contiguous or not 16-byte
+    aligned."""
     b, h, s, d = q.shape
     sk = k.shape[2]
     if q.dtype not in _DTYPES:
@@ -233,13 +333,23 @@ def _launch(q, k, v, causal, sm_scale, kernel=None):
         raise ValueError("flash kernel takes 1 <= batch*heads <= %d and "
                          "non-empty sequences, got %s %s"
                          % (_MAX_BH, tuple(q.shape), tuple(k.shape)))
-    for name, t in (("q", q), ("k", k), ("v", v)):
+    for name, t in tensors.items():
         if not t.is_contiguous():
             raise ValueError("flash kernel takes contiguous tensors; %s is "
                              "not" % name)
         if t.data_ptr() % 16:
             raise ValueError("flash kernel takes 16-byte aligned tensors; "
                              "%s is not" % name)
+
+
+def _launch(q, k, v, causal, sm_scale, kernel=None):
+    """Launch a CUDA kernel on the current stream: ``kernel`` ("sm90",
+    "tf32x3" or "ffma"), by default the one :func:`kernel_for` picks.
+    Raises on anything that kernel does not take, before any library
+    loads."""
+    b, h, s, d = q.shape
+    sk = k.shape[2]
+    _check_launch(q, k, dict(q=q, k=k, v=v))
     kernel = kernel or kernel_for(q.dtype, d)
     if kernel in _TAKES and kernel_for(q.dtype, d) != kernel:
         raise ValueError("the %s flash kernel takes %s, got %s at %d"
@@ -266,19 +376,78 @@ def _launch(q, k, v, causal, sm_scale, kernel=None):
     return out
 
 
-def flash_attention(q, k, v, causal=False, sm_scale=None):
-    """Blockwise exact attention; q/k/v/out are [batch, heads, seq, dim].
+def _bwd_call(name, fn, *args):
+    """Run one of flash_bwd.cu's entry points on the current stream and
+    count its launch under ``name``; raise on its error code."""
+    err = fn(*args)
+    if err != 0:
+        what = _kernel_lib("bwd").edl_flash_bwd_error_string(err).decode()
+        raise RuntimeError("flash kernel %s launch failed: error %d (%s)"
+                           % (name, err, what))
+    flash_attention.launches += 1
+    flash_attention.kernel_launches[name] += 1
 
-    CUDA tensors run the kernel :func:`kernel_for` names, CPU tensors
-    the plain version. The causal diagonal is anchored at position 0
-    (row i sees keys 0..i)."""
-    _check(q, k, v)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        raise NotImplementedError(
-            "flash_attention has no backward in edl_tpu_torch yet; run it "
-            "under torch.inference_mode() / no_grad, or use the dense path")
-    if sm_scale is None:
-        sm_scale = q.shape[-1] ** -0.5
+
+def _bwd_dims(q, k, causal, sm_scale):
+    b, h, s, d = q.shape
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    return (b * h, s, k.shape[2], d, float(sm_scale), int(bool(causal)),
+            _DTYPES[q.dtype], stream)
+
+
+def _bwd_stats(q, k, out, g, causal, sm_scale):
+    """The ``bwd_stats`` kernel: (lse, delta), f32 [b, h, s]."""
+    _check_launch(q, k, dict(q=q, k=k, out=out, g=g))
+    lib = _kernel_lib("bwd")
+    lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+    delta = torch.empty_like(lse)
+    with torch.cuda.device(q.device):
+        _bwd_call("bwd_stats", lib.edl_flash_bwd_stats, q.data_ptr(),
+                  k.data_ptr(), out.data_ptr(), g.data_ptr(), lse.data_ptr(),
+                  delta.data_ptr(), *_bwd_dims(q, k, causal, sm_scale))
+    return lse, delta
+
+
+def _bwd_dq(q, k, v, g, lse, delta, causal, sm_scale):
+    """The ``bwd_dq`` kernel: dq in q's dtype."""
+    _check_launch(q, k, dict(q=q, k=k, v=v, g=g, lse=lse, delta=delta))
+    lib = _kernel_lib("bwd")
+    dq = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        _bwd_call("bwd_dq", lib.edl_flash_bwd_dq, q.data_ptr(), k.data_ptr(),
+                  v.data_ptr(), g.data_ptr(), lse.data_ptr(),
+                  delta.data_ptr(), dq.data_ptr(),
+                  *_bwd_dims(q, k, causal, sm_scale))
+    return dq
+
+
+def _bwd_dkdv(q, k, v, g, lse, delta, causal, sm_scale):
+    """The ``bwd_dkdv`` kernel: (dk, dv) in k's dtype."""
+    _check_launch(q, k, dict(q=q, k=k, v=v, g=g, lse=lse, delta=delta))
+    lib = _kernel_lib("bwd")
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    with torch.cuda.device(q.device):
+        _bwd_call("bwd_dkdv", lib.edl_flash_bwd_dkdv, q.data_ptr(),
+                  k.data_ptr(), v.data_ptr(), g.data_ptr(), lse.data_ptr(),
+                  delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                  *_bwd_dims(q, k, causal, sm_scale))
+    return dk, dv
+
+
+def flash_bwd(q, k, v, out, g, causal, sm_scale):
+    """The backward on the card: (dq, dk, dv) in the inputs' dtype, by
+    flash_bwd.cu's three kernels on the current stream. Raises on what
+    they do not take (the forward kernels' domain)."""
+    if q.dtype != g.dtype or out.dtype != q.dtype:
+        raise TypeError("flash backward: q %s, out %s, g %s dtypes differ"
+                        % (q.dtype, out.dtype, g.dtype))
+    lse, delta = _bwd_stats(q, k, out, g, causal, sm_scale)
+    dq = _bwd_dq(q, k, v, g, lse, delta, causal, sm_scale)
+    dk, dv = _bwd_dkdv(q, k, v, g, lse, delta, causal, sm_scale)
+    return dq, dk, dv
+
+
+def _forward(q, k, v, causal, sm_scale):
     if q.device.type == "cpu":
         return blockwise_reference(q, k, v, causal, sm_scale)
     if q.device.type != "cuda":
@@ -287,10 +456,55 @@ def flash_attention(q, k, v, causal=False, sm_scale=None):
     return _launch(q, k, v, causal, sm_scale)
 
 
+class FlashAttentionFunction(torch.autograd.Function):
+    """:func:`flash_attention` with a gradient: the forward dispatches as
+    :func:`flash_attention` does and saves (q, k, v, out), as the JAX
+    package's ``_vjp_fwd``; the backward recomputes by
+    :func:`flash_bwd` on CUDA, :func:`flash_bwd_reference` on the
+    CPU."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, sm_scale):
+        out = _forward(q, k, v, causal, sm_scale)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.causal, ctx.sm_scale = causal, sm_scale
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, out = ctx.saved_tensors
+        g = g.contiguous()
+        if q.device.type == "cpu":
+            grads = flash_bwd_reference(q, k, v, out, g, ctx.causal,
+                                        ctx.sm_scale)
+        else:
+            if g.data_ptr() % 16:
+                g = g.clone()
+            grads = flash_bwd(q, k, v, out, g, ctx.causal, ctx.sm_scale)
+        return grads + (None, None)
+
+
+def flash_attention(q, k, v, causal=False, sm_scale=None):
+    """Blockwise exact attention; q/k/v/out are [batch, heads, seq, dim].
+
+    CUDA tensors run the kernel :func:`kernel_for` names, CPU tensors
+    the plain version. The causal diagonal is anchored at position 0
+    (row i sees keys 0..i). Differentiable: when a gradient is wanted,
+    the call goes through :class:`FlashAttentionFunction`; otherwise it
+    builds no graph."""
+    _check(q, k, v)
+    if sm_scale is None:
+        sm_scale = q.shape[-1] ** -0.5
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return FlashAttentionFunction.apply(q, k, v, causal, sm_scale)
+    return _forward(q, k, v, causal, sm_scale)
+
+
 #: kernel launches since the last reset (the main path's proof of use):
 #: the total, and by kernel
 flash_attention.launches = 0
-flash_attention.kernel_launches = {name: 0 for name in SOURCES}
+flash_attention.kernel_launches = {name: 0 for name in
+                                   tuple(SOURCES) + BWD_KERNELS}
 
 
 def reset_launches():

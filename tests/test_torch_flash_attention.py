@@ -68,12 +68,15 @@ def test_mha_layout_matches_jax():
 
 
 def test_flash_refuses_gradient_and_bad_shapes():
+    """A gradient is asked for: the call goes through the autograd
+    function (the backward is ported); without one it builds no graph.
+    Bad shapes are still refused."""
     q, k, v = _torch(*_qkv(s=32))
     q.requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="no backward"):
-        tfa.flash_attention(q, k, v, True)
+    out = tfa.flash_attention(q, k, v, True)
+    assert type(out.grad_fn).__name__ == "FlashAttentionFunctionBackward"
     with torch.no_grad():
-        tfa.flash_attention(q, k, v, True)  # no gradient asked: runs
+        assert tfa.flash_attention(q, k, v, True).grad_fn is None
     with pytest.raises(ValueError, match="shape mismatch"):
         tfa.flash_attention(k, k[:, :1], v, False)
 

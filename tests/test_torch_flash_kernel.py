@@ -12,6 +12,8 @@ The tf32x3 kernel's cases alone:
     python -m pytest --noconftest -p no:cacheprovider -q -s \
         tests/test_torch_flash_kernel.py -k tf32x3
 
+The backward kernels' cases alone: ``-k backward``.
+
 - The kernel that ``kernel_for`` picks against its plain version over
   head_dim 8 to 256, ragged and unequal q/kv lengths, causal and not,
   bf16 and f32, within ``chip_smoke.py``'s tolerance and on its inputs.
@@ -22,13 +24,20 @@ The tf32x3 kernel's cases alone:
 - Each kernel by name over the shapes the others serve: the wgmma
   kernels at their head dims with ragged, unequal and short kv; the
   FFMA kernel on bf16 at head_dim 64 and 128.
+- The backward's three kernels (``flash_bwd.cu``) against
+  ``flash_bwd_reference`` over the same shapes, causal and not, bf16
+  and f32, within ``chip_smoke.check_grads``; the gradient through
+  ``flash_attention`` and ``mha`` by autograd.
 - Planted faults: copies of a kernel's source, each with one part
   broken, must fail that same check. This shows the check is tight
   enough to catch them. In flash_fwd.cu: the accumulator's rescale, the
   tile that holds the causal diagonal, the ragged-kv mask. In
   flash_fwd_sm90.cu: the same three, and P.V without P's low half (P
   rounded once to bf16). In flash_fwd_tf32x3.cu: the same three, and
-  no lo terms anywhere (TF32 alone).
+  no lo terms anywhere (TF32 alone). In flash_bwd.cu: kv tiles that no
+query reaches returning early, so that their dk and dv rows keep the
+allocator's junk (causal, s < sk), and the ragged-kv mask of the stats
+kernel (the zero-filled kv tail then counts in each row's lse).
 """
 
 import glob
@@ -217,4 +226,84 @@ def test_tf32x3_planted_fault_fails_the_check(gen, tmp_path, monkeypatch,
     with pytest.raises(AssertionError, match="disagrees") as exc:
         chip_smoke.check_flash(out, ref, torch.float32, name)
     print("planted tf32x3 fault %r at %s causal=%s: %s"
+          % (name, shape, causal, exc.value))
+
+
+def _run_bwd(gen, shape, causal, dtype):
+    """The backward kernels' (dq, dk, dv) and the plain version's, with
+    NaN junk freed into the allocator first, so that rows the kernels do
+    not write show."""
+    b, h, s, sk, d = shape
+    q, k, v = chip_smoke.flash_inputs(b, h, s, sk, d, dtype, gen)
+    g = torch.randn((b, h, s, d), generator=gen, device="cuda").to(dtype)
+    out = fa.flash_attention(q, k, v, causal)
+    junk = [torch.full_like(k, float("nan")) for _ in range(2)]
+    del junk
+    got = fa.flash_bwd(q, k, v, out, g, causal, d ** -0.5)
+    torch.cuda.synchronize()
+    return got, fa.flash_bwd_reference(q, k, v, out, g, causal, d ** -0.5)
+
+
+BWD_SHAPES = SHAPES + [(1, 2, 100, 1000, 64), (1, 3, 65, 130, 128),
+                       (2, 4, 256, 256, 96)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("shape", BWD_SHAPES,
+                         ids=["b%dh%ds%dsk%dd%d" % x for x in BWD_SHAPES])
+def test_backward_matches_plain_version(gen, shape, causal, dtype):
+    got, want = _run_bwd(gen, shape, causal, dtype)
+    chip_smoke.check_grads(got, want, dtype, ("backward", shape, causal))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+def test_backward_autograd_through_mha(gen, dtype):
+    """The gradient of ``mha`` (the model layout) by autograd: the
+    backward kernels, one launch each, against the plain backward on the
+    same (q, k, v, out, g) in the kernels' layout."""
+    q, k, v = (t.transpose(1, 2).contiguous().requires_grad_(True)
+               for t in chip_smoke.flash_inputs(2, 4, 300, 300, 64, dtype,
+                                                gen))
+    g = torch.randn_like(q)
+    fa.reset_launches()
+    out = fa.mha(q, k, v, causal=True)
+    got = torch.autograd.grad(out, (q, k, v), g)
+    assert [fa.flash_attention.kernel_launches[n]
+            for n in fa.BWD_KERNELS] == [1, 1, 1]
+    t = lambda x: x.detach().transpose(1, 2).contiguous()
+    want = fa.flash_bwd_reference(t(q), t(k), t(v), t(out), t(g), True,
+                                  64 ** -0.5)
+    chip_smoke.check_grads([t(x) for x in got], want, dtype, "mha")
+
+
+# (name, a line of flash_bwd.cu, its broken form, the shape that shows it
+# and whether causal)
+BWD_FAULTS = [
+    ("unreached kv rows left unwritten",
+     "const int first = causal ? k0 / B : 0;",
+     "if (causal && k0 >= s) return;  // planted\n"
+     "  const int first = causal ? k0 / B : 0;", (1, 2, 100, 1000, 64),
+     True),
+    ("no ragged mask in the stats",
+     "ok[j] = kp < sk && (!causal || qp >= kp);",
+     "ok[j] = !causal || qp >= kp;", (2, 2, 1024, 24, 64), False),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("name,line,broken,shape,causal", BWD_FAULTS,
+                         ids=[f[0].replace(" ", "_") for f in BWD_FAULTS])
+def test_backward_planted_fault_fails_the_check(gen, tmp_path, monkeypatch,
+                                                name, line, broken, shape,
+                                                causal, dtype):
+    monkeypatch.setattr(fa, "_lib_bwd", fa.bind_bwd(
+        _planted(tmp_path, fa._SOURCE_BWD, line, broken)))
+    got, want = _run_bwd(gen, shape, causal, dtype)
+    with pytest.raises(AssertionError, match="disagrees") as exc:
+        chip_smoke.check_grads(got, want, dtype, name)
+    print("planted backward fault %r at %s causal=%s: %s"
           % (name, shape, causal, exc.value))

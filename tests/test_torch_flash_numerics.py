@@ -186,8 +186,9 @@ def test_cpu_tensors_run_the_plain_version_and_count_nothing():
     out = fa.flash_attention(q, k, v, True)
     assert torch.equal(out, fa.blockwise_reference(q, k, v, True, 0.125))
     assert fa.flash_attention.launches == 0
-    assert fa.flash_attention.kernel_launches == {"sm90": 0, "tf32x3": 0,
-                                                  "ffma": 0}
+    assert fa.flash_attention.kernel_launches == {
+        "sm90": 0, "tf32x3": 0, "ffma": 0, "bwd_stats": 0, "bwd_dq": 0,
+        "bwd_dkdv": 0}
 
 
 @pytest.mark.parametrize("s,sk,causal", CASES,

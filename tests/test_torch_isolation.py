@@ -84,3 +84,14 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         teacher_server.lm_teacher()
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         teacher_server.lm_teacher(device="cuda")
+    # the training entry points: the bench's LM loop and its models
+    from edl_tpu_torch import bench
+    from edl_tpu_torch.models import bert
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        bench.run_gpt(tiny=True)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        bench.run_bert(tiny=True)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        bert.bert_tiny()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        gpt.create_model_and_loss()
