@@ -22,14 +22,20 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    attention went through the ``sm90`` kernel and none through the
    others, and check the served logits against the same model run
    with dense attention;
-3b. backward kernels: hold the flash backward's three kernels
-   (``flash_bwd.cu``: ``bwd_stats``, ``bwd_dq``, ``bwd_dkdv``) against
+3b. backward kernels: hold the flash backward, as ``flash_bwd``
+   dispatches it (``bwd_stats`` from ``flash_bwd.cu``, then the dq and
+   dk/dv kernels ``bwd_kernel_for`` picks: ``flash_bwd_sm90.cu``'s bf16
+   wgmma ``bwd_dq_sm90``/``bwd_dkdv_sm90`` at head_dim 64 and 128,
+   ``flash_bwd.cu``'s FFMA ``bwd_dq``/``bwd_dkdv`` otherwise), against
    ``flash_bwd_reference`` on the card at the training shapes (GPT-2s
    b8 h12 s1024 causal, BERT-base b32 h12 s512 full, bf16), in f32, at
-   ragged, unequal and short kv, d128, d96 and the K2 regime; time each
-   kernel, the whole backward, the plain version and SDPA's backward
-   (``torch.autograd.grad`` on a retained graph, a yardstick the port
-   never calls);
+   ragged, unequal and short kv, d128, d96, the K2 regime and on
+   ``paired_inputs`` (nearly cancelling pairs, where a bf16 rounding of
+   P or dS would show); at the
+   two training shapes also the FFMA dq and dk/dv by name, held to the
+   same check. Time each kernel, the whole backward, the plain version
+   and SDPA's backward (``torch.autograd.grad`` on a retained graph, a
+   yardstick the port never calls);
 4. decode: start the port's full-width GPT-2s ``lm_teacher`` (f32,
    8 KV slots) on the card and drive its decode plane through the
    ``RpcClient``: 10 concurrent ``lm_generate`` calls (two wait for a
@@ -53,16 +59,18 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    over f32 params, remat, ``adamw(1e-4)``, batch 8 x 1024) with flash
    and again with dense attention, then ``run_bert`` at bert-base
    (batch 32 x 512) with flash. Each flash step must launch 24 ``sm90``
-   forwards (remat runs the forward twice) and 12 of each backward
-   kernel, the dense run none; on the same weights and batch the flash
+   forwards (remat runs the forward twice) and 12 each of ``bwd_stats``,
+   ``bwd_dq_sm90`` and ``bwd_dkdv_sm90`` (none of the FFMA dq and
+   dk/dv), the dense run none; on the same weights and batch the flash
    first-step loss must be within 1e-2 relative of the dense one and
    each parameter's gradient within relative Frobenius 2e-2; every
    loss finite. Prints tokens/s, step ms, implied TFLOP/s, MFU against
    the H100's 989 TFLOP/s bf16, peak memory and a profile of one step
    with the device-busy share.
 
-Prints a ``kernels`` JSON line (the forward kernels and the backward's
-three, launches by path), the card's name and power limit, and last
+Prints a ``kernels`` JSON line (the three forward kernels and the
+backward's five, launches by path), the card's name and power limit,
+and last
 ``{"ok": true, "device": {...}}``. Exits
 non-zero, printing no result, when CUDA is unavailable.
 """
@@ -145,6 +153,11 @@ SERVE_TOL = 4 * 2.0 ** -5
 BWD_TOL = {torch.float32: lambda ref: (1e-4, 1e-4),
            torch.bfloat16: lambda ref: (2.0 ** -9 * ref.abs().max().item(),
                                         2.0 ** -7)}
+# paired_inputs' noise: at b1 h2 s=sk=256 and b4 h12 s=sk=1024 (full), a
+# bf16 rounding of P or dS in one product misses BWD_TOL by 16-88x and
+# the hi/lo split passes it within 0.06 of the atol (CPU emulation,
+# tests/test_torch_flash_numerics.py)
+PAIR_EPS = 0.05
 # the train phase: GPT-2s training as bench.py runs it, a few steps
 TRAIN_WARMUP, TRAIN_ITERS = 2, 8
 # flash vs dense attention on the same weights and batch, both in bf16
@@ -263,6 +276,23 @@ def flash_inputs(b, h, s, sk, d, dtype, gen, device="cuda"):
     mk = lambda n, std: (torch.randn((b, h, n, d), generator=gen,
                                      device=device) * std).to(dtype)
     return mk(s, Q_STD), mk(sk, 1.0), mk(sk, 1.0)
+
+
+def paired_inputs(b, h, s, sk, d, dtype, gen, device="cuda"):
+    """The backward's cancellation case: q, k, v as ``flash_inputs`` and g
+    unit normal, then query rows and keys in pairs (s and sk even): each
+    odd row of q and k is the even one plus ``PAIR_EPS`` of unit noise,
+    each odd row of g and v the even one negated. dq, dk and dv are then
+    sums of nearly cancelling pairs, where a bf16 rounding of P or dS
+    shows."""
+    mk = lambda n, std: torch.randn((b, h, n, d), generator=gen,
+                                    device=device) * std
+    q, k, v, g = mk(s, Q_STD), mk(sk, 1.0), mk(sk, 1.0), mk(s, 1.0)
+    q[:, :, 1::2] = q[:, :, 0::2] + PAIR_EPS * mk(s // 2, 1.0)
+    k[:, :, 1::2] = k[:, :, 0::2] + PAIR_EPS * mk(sk // 2, 1.0)
+    g[:, :, 1::2] = -g[:, :, 0::2]
+    v[:, :, 1::2] = -v[:, :, 0::2]
+    return tuple(x.to(dtype) for x in (q, k, v, g))
 
 
 def check_flash(out, ref, dtype, case):
@@ -396,7 +426,9 @@ def check_grads(got, want, dtype, case):
                 "max_abs_err %g, max of |got - ref| - %g |ref| is %g > %g"
                 % (case, name, diff.max().item(), rtol, excess, atol))
         err = max(err, diff.max().item())
-        margin = max(margin, excess / atol)
+        # an all-zero reference (one key per row: dq and dk vanish) has a
+        # zero atol; the check then held got to zero as well
+        margin = max(margin, excess / atol if atol else 0.0)
     return err, margin
 
 
@@ -429,16 +461,20 @@ def bwd_bound_ms(b, h, s, sk, d, dtype, causal, stage):
 
 
 def bwd_phase(gpu):
-    """Phase 3b: the backward's three kernels against
+    """Phase 3b: the backward as ``flash_bwd`` dispatches it against
     ``flash_bwd_reference`` on the same (q, k, v, out, g), timed: each
     kernel alone (on the lse and delta the stats kernel made), the three
-    in turn (``flash_bwd``), the plain version, and SDPA's backward."""
+    in turn (``flash_bwd``), the plain version, and SDPA's backward. At
+    the training shapes the FFMA dq and dk/dv kernels also run by name,
+    held to the same check and timed beside the kernels that replaced
+    them there."""
     flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
     f32, bf16 = torch.float32, torch.bfloat16
     cases = [  # (b, h, s, sk, d, dtype, causal, what)
         (8, 12, 1024, 1024, 64, bf16, True, "gpt2s train"),
         (32, 12, 512, 512, 64, bf16, False, "bert-base train"),
+        (4, 12, 1024, 1024, 64, bf16, False, "paired"),
         (1, 12, 1024, 1024, 64, f32, True, "f32"),
         (4, 12, 1000, 1000, 64, bf16, True, "ragged sk"),
         (4, 12, 1000, 1000, 64, f32, True, "ragged sk"),
@@ -452,14 +488,26 @@ def bwd_phase(gpu):
     rows = []
     for b, h, s, sk, d, dtype, causal, what in cases:
         scale = d ** -0.5
-        q, k, v = flash_inputs(b, h, s, sk, d, dtype, gen)
-        g = torch.randn((b, h, s, d), generator=gen, device="cuda").to(dtype)
+        kernel = fa.bwd_kernel_for(dtype, d)
+        _, dq_name, dkdv_name = fa.bwd_kernel_names(kernel)
+        by_name = what.endswith("train") and kernel != "ffma"
+        if what == "paired":
+            q, k, v, g = paired_inputs(b, h, s, sk, d, dtype, gen)
+        else:
+            q, k, v = flash_inputs(b, h, s, sk, d, dtype, gen)
+            g = torch.randn((b, h, s, d), generator=gen,
+                            device="cuda").to(dtype)
         out = fa.flash_attention(q, k, v, causal)
         got = fa.flash_bwd(q, k, v, out, g, causal, scale)
         torch.cuda.synchronize()
         want = fa.flash_bwd_reference(q, k, v, out, g, causal, scale)
         case = (b, h, s, sk, d, str(dtype).split(".")[-1], causal)
-        err, margin = check_grads(got, want, dtype, case)
+        err, margin = check_grads(got, want, dtype, case + (kernel,))
+        ffma_err = ffma_margin = None
+        if by_name:
+            ffma_err, ffma_margin = check_grads(
+                fa.flash_bwd(q, k, v, out, g, causal, scale, "ffma"), want,
+                dtype, case + ("ffma",))
         lse, delta = fa._bwd_stats(q, k, out, g, causal, scale)
         stats_want = fa.flash_bwd_stats_reference(q, k, out, g, causal,
                                                   scale)
@@ -474,13 +522,24 @@ def bwd_phase(gpu):
         stage_ms = {
             "bwd_stats": time_ms(lambda: fa._bwd_stats(
                 q, k, out, g, causal, scale), flush, reps),
-            "bwd_dq": time_ms(lambda: fa._bwd_dq(
+            dq_name: time_ms(lambda: fa._bwd_dq(
                 q, k, v, g, lse, delta, causal, scale), flush, reps),
-            "bwd_dkdv": time_ms(lambda: fa._bwd_dkdv(
+            dkdv_name: time_ms(lambda: fa._bwd_dkdv(
                 q, k, v, g, lse, delta, causal, scale), flush, reps),
             "all": time_ms(lambda: fa.flash_bwd(
                 q, k, v, out, g, causal, scale), flush, reps),
         }
+        if by_name:
+            stage_ms.update({
+                "bwd_dq": time_ms(lambda: fa._bwd_dq(
+                    q, k, v, g, lse, delta, causal, scale, "ffma"), flush,
+                    reps),
+                "bwd_dkdv": time_ms(lambda: fa._bwd_dkdv(
+                    q, k, v, g, lse, delta, causal, scale, "ffma"), flush,
+                    reps),
+                "all_ffma": time_ms(lambda: fa.flash_bwd(
+                    q, k, v, out, g, causal, scale, "ffma"), flush, reps),
+            })
         plain_ms = time_ms(lambda: fa.flash_bwd_reference(
             q, k, v, out, g, causal, scale), flush, max(2, reps // 4))
         plain_stats_ms = time_ms(lambda: fa.flash_bwd_stats_reference(
@@ -491,25 +550,37 @@ def bwd_phase(gpu):
         library_ms = time_ms(lambda: torch.autograd.grad(
             sdpa_out, leaves, g, retain_graph=True), flush, reps)
         del sdpa_out, leaves
-        bounds = {stage: bwd_bound_ms(b, h, s, sk, d, dtype, causal, stage)
+        # a kernel's bound is its stage's, whichever kernel runs it
+        bounds = {stage: bwd_bound_ms(b, h, s, sk, d, dtype, causal,
+                                      stage.replace("_sm90", "")
+                                      .replace("all_ffma", "all"))
                   for stage in stage_ms}
         row = dict(shape=[b, h, s, sk, d], dtype=case[5], causal=causal,
-                   what=what, max_abs_err=err, excess_over_atol=margin,
+                   what=what, kernel=kernel, max_abs_err=err,
+                   excess_over_atol=margin, ffma_max_abs_err=ffma_err,
+                   ffma_excess_over_atol=ffma_margin,
                    stats_max_abs_err=stats_err, ms=stage_ms,
                    plain_ms=plain_ms, plain_stats_ms=plain_stats_ms,
                    library_ms=library_ms,
                    bound_ms={k_: v_[0] for k_, v_ in bounds.items()},
                    bound_by={k_: v_[1] for k_, v_ in bounds.items()})
-        log("kernel flash_bwd b=%d h=%d s=%d sk=%d d=%d %s %s (%s): dq/dk/dv "
-            "max_abs_err %.3g (worst excess %.3g of the atol), lse/delta "
-            "%.3g; stats %.4f ms, dq %.4f ms, dkdv %.4f ms, all three "
-            "%.4f ms (bound %.2f us, %s); plain %.4f ms (stats %.4f ms), "
-            "sdpa backward %.4f ms [%s]"
-            % (b, h, s, sk, d, case[5], "causal" if causal else "full", what,
-               err, margin, stats_err, stage_ms["bwd_stats"],
-               stage_ms["bwd_dq"], stage_ms["bwd_dkdv"], stage_ms["all"],
-               bounds["all"][0] * 1e3, bounds["all"][1], plain_ms,
-               plain_stats_ms, library_ms, gpu))
+        log("kernel flash_bwd %s b=%d h=%d s=%d sk=%d d=%d %s %s (%s): "
+            "dq/dk/dv max_abs_err %.3g (worst excess %.3g of the atol), "
+            "lse/delta %.3g; stats %.4f ms, dq %.4f ms, dkdv %.4f ms, all "
+            "three %.4f ms (bound %.2f us, %s; dq %.2f us, dkdv %.2f us); "
+            "plain %.4f ms (stats %.4f ms), sdpa backward %.4f ms [%s]"
+            % (kernel, b, h, s, sk, d, case[5],
+               "causal" if causal else "full", what, err, margin, stats_err,
+               stage_ms["bwd_stats"], stage_ms[dq_name], stage_ms[dkdv_name],
+               stage_ms["all"], bounds["all"][0] * 1e3, bounds["all"][1],
+               bounds[dq_name][0] * 1e3, bounds[dkdv_name][0] * 1e3,
+               plain_ms, plain_stats_ms, library_ms, gpu))
+        if by_name:
+            log("kernel flash_bwd ffma by name, same inputs (%s): dq/dk/dv "
+                "max_abs_err %.3g (worst excess %.3g of the atol); dq %.4f "
+                "ms, dkdv %.4f ms, all three %.4f ms [%s]"
+                % (what, ffma_err, ffma_margin, stage_ms["bwd_dq"],
+                   stage_ms["bwd_dkdv"], stage_ms["all_ffma"], gpu))
         rows.append(row)
         del q, k, v, g, out, got, want
     del flush
@@ -949,8 +1020,10 @@ def train_phase(gpu):
         launches = dict(fa.flash_attention.kernel_launches)
         steps = len(stats["losses"])
         path = "train_%s%s" % (kind, "" if flash else "_dense")
+        # bf16 at head_dim 64: bwd_stats, then the sm90 dq and dk/dv
         want = (only("sm90", 2 * layers * steps,
-                     **{k: layers * steps for k in fa.BWD_KERNELS})
+                     **{k: layers * steps
+                        for k in fa.bwd_kernel_names("sm90")})
                 if flash else only("sm90", 0))
         log("train: %s %s: %.1f tokens/s per card, %.3f ms per step (%d "
             "timed of %d), implied %.1f TFLOP/s, MFU %.4f of 989 TFLOP/s "
@@ -988,7 +1061,8 @@ def train_phase(gpu):
 def step_profile(stats, what, gpu):
     """One more step of a bench run, profiled: device time by kernel and
     its share of the step's time (the device-busy share)."""
-    total_us = log_profile(stats["dispatch"], what, gpu, top=10)
+    total_us = log_profile(stats["dispatch"], what, gpu, top=10,
+                           also=("flash_", "bwd_"))
     if total_us:
         log("%s: device busy %.1f%% of the %.3f ms step [%s]"
             % (what, 100.0 * total_us / 1e3 / stats["step_ms"],
@@ -1141,10 +1215,12 @@ def time_calls(fn, reps):
     return statistics.median(device_ms), statistics.median(host_ms)
 
 
-def log_profile(fn, what, gpu, top=8):
-    """torch.profiler over one call of ``fn``: device time by kernel and
-    the host's aten op calls (nested calls included). Returns the device
-    time in microseconds (0 when none was recorded)."""
+def log_profile(fn, what, gpu, top=8, also=()):
+    """torch.profiler over one call of ``fn``: device time by kernel (the
+    ``top`` largest, and beyond them every kernel whose name holds one of
+    ``also``) and the host's aten op calls (nested calls included).
+    Returns the device time in microseconds (0 when none was
+    recorded)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1165,9 +1241,11 @@ def log_profile(fn, what, gpu, top=8):
         "op calls on the host [%s]" % (what, total_us / 1e3,
                                        sum(e.count for e in kernels), ops,
                                        gpu))
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
-        log("  %8.3f ms x%-4d %s" % (e.self_device_time_total / 1e3,
-                                      e.count, e.key[:90]))
+    ranked = sorted(kernels, key=lambda e: -e.self_device_time_total)
+    for i, e in enumerate(ranked):
+        if i < top or any(name in e.key for name in also):
+            log("  %8.3f ms x%-4d %s" % (e.self_device_time_total / 1e3,
+                                          e.count, e.key[:90]))
     return total_us
 
 
@@ -1284,32 +1362,41 @@ def main():
             "device_ms": row["device_ms"],
             "shapes": [r for r in kernel_rows if r["kernel"] == name],
         })
-    # the backward's three kernels at the GPT-2s training shape; "plain"
-    # is flash_bwd_reference (the whole backward; pass 1 alone for the
-    # stats kernel), "library" SDPA's whole backward
-    train = next(r for r in bwd_rows if r["what"] == "gpt2s train")
-    for name in fa.BWD_KERNELS:
+    # the backward's kernels at the GPT-2s training shape (the FFMA dq and
+    # dk/dv by name there); "plain" is flash_bwd_reference (the whole
+    # backward; pass 1 alone for the stats kernel), "library" SDPA's whole
+    # backward
+    train = {r["what"]: r for r in bwd_rows if r["what"].endswith("train")}
+    gpt2s = train["gpt2s train"]
+    for name in fa.BWD_KERNELS + fa.BWD_SM90_KERNELS:
         launches = {path: counts[name] for path, counts in by_path.items()}
+        sm90 = name.endswith("_sm90")
         kernels.append({
             "name": "flash_" + name, "route": "cuda",
-            "source": os.path.relpath(fa._SOURCE_BWD, repo),
+            "source": os.path.relpath(
+                fa._SOURCE_BWD_SM90 if sm90 else fa._SOURCE_BWD, repo),
             "replaces": "edl_tpu/ops/flash_attention.py:254",
             "replaces_note": "_flash_bwd, an XLA lax.scan custom_vjp "
                              "backward, not Pallas",
             "launches": sum(launches.values()),
             "launches_by_path": launches,
-            "max_abs_err": (train["stats_max_abs_err"]
+            "max_abs_err": (gpt2s["stats_max_abs_err"]
                             if name == "bwd_stats" else
-                            train["max_abs_err"]),
-            "ms": train["ms"][name],
-            "plain_ms": (train["plain_stats_ms"] if name == "bwd_stats"
-                         else train["plain_ms"]),
-            "bound_ms": train["bound_ms"][name],
-            "bound_by": train["bound_by"][name],
-            "library_ms": train["library_ms"],
-            "backward_ms": train["ms"]["all"],
-            "backward_bound_ms": train["bound_ms"]["all"],
-            "shapes": bwd_rows,
+                            gpt2s["max_abs_err"] if sm90 else
+                            gpt2s["ffma_max_abs_err"]),
+            "ms": gpt2s["ms"][name],
+            "bert_ms": train["bert-base train"]["ms"][name],
+            "plain_ms": (gpt2s["plain_stats_ms"] if name == "bwd_stats"
+                         else gpt2s["plain_ms"]),
+            "bound_ms": gpt2s["bound_ms"][name],
+            "bound_by": gpt2s["bound_by"][name],
+            "library_ms": gpt2s["library_ms"],
+            "backward_ms": gpt2s["ms"]["all"],
+            "backward_ffma_ms": gpt2s["ms"]["all_ffma"],
+            "backward_bound_ms": gpt2s["bound_ms"]["all"],
+            # every case of the backward, once
+            **({"shapes": bwd_rows} if name == "bwd_stats" else
+               {"shapes_in": "flash_bwd_stats"}),
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(gpu, flush=True)

@@ -1,5 +1,6 @@
 """Flash attention: three hand-written CUDA forward kernels, a CUDA
-backward in three kernels, and their plain PyTorch versions.
+backward in three kernels (two of them in a bf16 wgmma form too), and
+their plain PyTorch versions.
 
 The port's counterpart of ``edl_tpu/ops/flash_attention.py``. Exact
 attention that never materializes the [seq, seq] score matrix:
@@ -29,16 +30,24 @@ The gradient (:class:`FlashAttentionFunction`, a
 ``torch.autograd.Function`` in place of the JAX package's
 ``custom_vjp``) saves q, k, v and the output, and recomputes:
 
-- on a CUDA tensor, ``csrc/flash_bwd.cu``'s three kernels, in
-  FlashAttention-2's order: ``bwd_stats`` (each q row's lse over the
-  masked scores, and delta = rowsum(g * out)), ``bwd_dq`` (one block per
-  q tile, looping over kv tiles) and ``bwd_dkdv`` (one block per kv
-  tile, looping over q tiles); f32 FFMA on the CUDA cores;
+- on a CUDA tensor, three kernels in FlashAttention-2's order:
+  ``bwd_stats`` (each q row's lse over the masked scores, and delta =
+  rowsum(g * out)), then dq (one block per q tile, looping over kv
+  tiles) and dk/dv (one block per kv tile, looping over q tiles), by
+  the pair :func:`bwd_kernel_for` picks:
+  - ``sm90`` (``csrc/flash_bwd_sm90.cu``: ``bwd_dq_sm90``,
+    ``bwd_dkdv_sm90``) for bf16 at head_dim 64 (the training path) and
+    128: bf16 wgmma with f32 accumulators, tiles fed by TMA, P and dS
+    split into bf16 hi and lo before the products that take them;
+  - ``ffma`` (``csrc/flash_bwd.cu``: ``bwd_dq``, ``bwd_dkdv``) for the
+    rest: f32 FFMA on the CUDA cores. ``bwd_stats`` is always this
+    source's;
 - on a CPU tensor, :func:`flash_bwd_reference`, the port of the JAX
   package's ``_flash_bwd`` step by step.
 
 There is no fallback between any of them: a CUDA tensor launches the
-kernel :func:`kernel_for` names (or the backward's three) or raises.
+kernel :func:`kernel_for` names (or the backward's three, as
+:func:`bwd_kernel_for` names them) or raises.
 Under ``torch.inference_mode()`` or ``no_grad`` the forward builds no
 graph and saves nothing.
 
@@ -62,10 +71,16 @@ _SOURCE = os.path.join(_CSRC, "flash_fwd.cu")
 _SOURCE_SM90 = os.path.join(_CSRC, "flash_fwd_sm90.cu")
 _SOURCE_TF32X3 = os.path.join(_CSRC, "flash_fwd_tf32x3.cu")
 _SOURCE_BWD = os.path.join(_CSRC, "flash_bwd.cu")
+_SOURCE_BWD_SM90 = os.path.join(_CSRC, "flash_bwd_sm90.cu")
 #: each forward kernel's source, by the name kernel_for gives it
 SOURCES = {"sm90": _SOURCE_SM90, "tf32x3": _SOURCE_TF32X3, "ffma": _SOURCE}
-#: the backward's three kernels, all in _SOURCE_BWD, by launch-count name
+#: the backward's three FFMA kernels, all in _SOURCE_BWD, by launch-count
+#: name
 BWD_KERNELS = ("bwd_stats", "bwd_dq", "bwd_dkdv")
+#: the bf16 wgmma dq and dk/dv kernels, in _SOURCE_BWD_SM90
+BWD_SM90_KERNELS = ("bwd_dq_sm90", "bwd_dkdv_sm90")
+#: each backward source, by the name bwd_kernel_for gives it
+SOURCES_BWD = {"sm90": _SOURCE_BWD_SM90, "ffma": _SOURCE_BWD}
 #: head_dim the kernels take: a multiple of 8 (16-byte bf16 rows), <= 256
 HEAD_MULT = 8
 MAX_HEAD_DIM = 256
@@ -73,6 +88,8 @@ MAX_HEAD_DIM = 256
 SM90_HEAD_DIMS = (64, 128)
 #: head_dim the tf32x3 kernel takes (float32 only)
 TF32X3_HEAD_DIM = 64
+#: head_dim the sm90 backward takes (bf16 only)
+BWD_SM90_HEAD_DIMS = (64, 128)
 #: what each wgmma kernel takes, for the refusal of a launch by name
 _TAKES = {"sm90": "bfloat16 at head_dim %s" % (SM90_HEAD_DIMS,),
           "tf32x3": "float32 at head_dim %d" % TF32X3_HEAD_DIM}
@@ -83,6 +100,7 @@ _lib = None        # flash_fwd.cu's library
 _lib_sm90 = None   # flash_fwd_sm90.cu's library
 _lib_tf32x3 = None  # flash_fwd_tf32x3.cu's library
 _lib_bwd = None    # flash_bwd.cu's library
+_lib_bwd_sm90 = None  # flash_bwd_sm90.cu's library
 _lib_lock = threading.Lock()
 
 
@@ -95,6 +113,23 @@ def kernel_for(dtype, head_dim):
     if dtype == torch.float32 and head_dim == TF32X3_HEAD_DIM:
         return "tf32x3"
     return "ffma"
+
+
+def bwd_kernel_for(dtype, head_dim):
+    """The dq and dk/dv kernels a CUDA backward takes: ``"sm90"`` for
+    bf16 at head_dim 64 or 128, ``"ffma"`` for everything else the
+    wrapper accepts. The one place that decides; ``bwd_stats`` is FFMA's
+    always."""
+    if dtype == torch.bfloat16 and head_dim in BWD_SM90_HEAD_DIMS:
+        return "sm90"
+    return "ffma"
+
+
+def bwd_kernel_names(kernel):
+    """The launch-count names of a backward by ``kernel`` (``"sm90"``
+    or ``"ffma"``): stats, dq, dk/dv."""
+    sfx = "_sm90" if kernel == "sm90" else ""
+    return ("bwd_stats", "bwd_dq" + sfx, "bwd_dkdv" + sfx)
 
 
 def bind(lib):
@@ -150,15 +185,35 @@ def bind_bwd(lib):
     return lib
 
 
+def bind_bwd_sm90(lib):
+    """Declare flash_bwd_sm90.cu's C entry points' types on its
+    library."""
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    dims = [i, i, i, i, f, i, p]  # bh s sk d sm_scale causal stream
+    lib.edl_flash_bwd_dq_sm90.argtypes = [p, p, p, p, p, p, p] + dims
+    lib.edl_flash_bwd_dkdv_sm90.argtypes = [p, p, p, p, p, p, p, p] + dims
+    for name in ("dq", "dkdv"):
+        getattr(lib, "edl_flash_bwd_%s_sm90" % name).restype = ctypes.c_int
+    lib.edl_flash_bwd_sm90_error_string.argtypes = [ctypes.c_int]
+    lib.edl_flash_bwd_sm90_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 def _kernel_lib(kernel="ffma"):
-    """The built library of ``kernel`` (a forward kernel's name, or
-    ``"bwd"``; nvcc on first use, under a file lock)."""
-    global _lib, _lib_sm90, _lib_tf32x3, _lib_bwd
+    """The built library of ``kernel`` (a forward kernel's name,
+    ``"bwd"`` or ``"bwd_sm90"``; nvcc on first use, under a file
+    lock)."""
+    global _lib, _lib_sm90, _lib_tf32x3, _lib_bwd, _lib_bwd_sm90
     with _lib_lock:
         if kernel == "bwd":
             if _lib_bwd is None:
                 _lib_bwd = bind_bwd(buildlock.load(_SOURCE_BWD))
             return _lib_bwd
+        if kernel == "bwd_sm90":
+            if _lib_bwd_sm90 is None:
+                _lib_bwd_sm90 = bind_bwd_sm90(buildlock.load(
+                    _SOURCE_BWD_SM90))
+            return _lib_bwd_sm90
         if kernel == "sm90":
             if _lib_sm90 is None:
                 _lib_sm90 = bind_sm90(buildlock.load(_SOURCE_SM90))
@@ -175,8 +230,9 @@ def _kernel_lib(kernel="ffma"):
 def build():
     """Build (if needed) and load every kernel source, one nvcc each,
     side by side; returns ``{name: (path, seconds, log)}`` for the build
-    report, the backward's source under ``"bwd"``."""
-    sources = dict(SOURCES, bwd=_SOURCE_BWD)
+    report, the backward's sources under ``"bwd"`` and
+    ``"bwd_sm90"``."""
+    sources = dict(SOURCES, bwd=_SOURCE_BWD, bwd_sm90=_SOURCE_BWD_SM90)
     with ThreadPoolExecutor(len(sources)) as pool:
         futures = {name: pool.submit(buildlock.build, src)
                    for name, src in sources.items()}
@@ -376,23 +432,56 @@ def _launch(q, k, v, causal, sm_scale, kernel=None):
     return out
 
 
-def _bwd_call(name, fn, *args):
-    """Run one of flash_bwd.cu's entry points on the current stream and
-    count its launch under ``name``; raise on its error code."""
+def _bwd_call(name, fn, what, *args):
+    """Run the backward entry point ``fn`` on the current stream and
+    count its launch under ``name``; raise on its error code, worded by
+    ``what``."""
     err = fn(*args)
     if err != 0:
-        what = _kernel_lib("bwd").edl_flash_bwd_error_string(err).decode()
         raise RuntimeError("flash kernel %s launch failed: error %d (%s)"
-                           % (name, err, what))
+                           % (name, err, what(err).decode()))
     flash_attention.launches += 1
     flash_attention.kernel_launches[name] += 1
 
 
-def _bwd_dims(q, k, causal, sm_scale):
+def _bwd_entry(kernel, stage):
+    """The launch-count name, C entry point and error-string function of
+    ``stage`` ("dq" or "dkdv") of the backward by ``kernel``."""
+    if kernel == "sm90":
+        lib = _kernel_lib("bwd_sm90")
+        return ("bwd_%s_sm90" % stage,
+                getattr(lib, "edl_flash_bwd_%s_sm90" % stage),
+                lib.edl_flash_bwd_sm90_error_string)
+    lib = _kernel_lib("bwd")
+    return ("bwd_" + stage, getattr(lib, "edl_flash_bwd_" + stage),
+            lib.edl_flash_bwd_error_string)
+
+
+def _bwd_dims(q, k, causal, sm_scale, kernel="ffma"):
+    """The trailing arguments of a backward entry point: bh, s, sk, d,
+    sm_scale, causal, (FFMA's dtype code), the current stream."""
     b, h, s, d = q.shape
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    dtype = () if kernel == "sm90" else (_DTYPES[q.dtype],)
     return (b * h, s, k.shape[2], d, float(sm_scale), int(bool(causal)),
-            _DTYPES[q.dtype], stream)
+            *dtype, stream)
+
+
+def _bwd_kernel(q, k, tensors, kernel):
+    """Check what the dq or dk/dv kernels take (``tensors``: {name:
+    tensor}) and resolve ``kernel`` (default: :func:`bwd_kernel_for`'s
+    pick); raise on a named kernel that does not take the tensors,
+    before any library loads."""
+    _check_launch(q, k, tensors)
+    picked = bwd_kernel_for(q.dtype, q.shape[3])
+    kernel = kernel or picked
+    if kernel not in SOURCES_BWD:
+        raise ValueError("no flash backward kernel %r" % (kernel,))
+    if kernel == "sm90" and picked != "sm90":
+        raise ValueError("the sm90 flash backward takes bfloat16 at "
+                         "head_dim %s, got %s at %d"
+                         % (BWD_SM90_HEAD_DIMS, q.dtype, q.shape[3]))
+    return kernel
 
 
 def _bwd_stats(q, k, out, g, causal, sm_scale):
@@ -402,48 +491,57 @@ def _bwd_stats(q, k, out, g, causal, sm_scale):
     lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
     delta = torch.empty_like(lse)
     with torch.cuda.device(q.device):
-        _bwd_call("bwd_stats", lib.edl_flash_bwd_stats, q.data_ptr(),
-                  k.data_ptr(), out.data_ptr(), g.data_ptr(), lse.data_ptr(),
+        _bwd_call("bwd_stats", lib.edl_flash_bwd_stats,
+                  lib.edl_flash_bwd_error_string, q.data_ptr(), k.data_ptr(),
+                  out.data_ptr(), g.data_ptr(), lse.data_ptr(),
                   delta.data_ptr(), *_bwd_dims(q, k, causal, sm_scale))
     return lse, delta
 
 
-def _bwd_dq(q, k, v, g, lse, delta, causal, sm_scale):
-    """The ``bwd_dq`` kernel: dq in q's dtype."""
-    _check_launch(q, k, dict(q=q, k=k, v=v, g=g, lse=lse, delta=delta))
-    lib = _kernel_lib("bwd")
+def _bwd_dq(q, k, v, g, lse, delta, causal, sm_scale, kernel=None):
+    """The dq kernel: ``kernel`` ("sm90" or "ffma"), by default the one
+    :func:`bwd_kernel_for` picks; dq in q's dtype."""
+    kernel = _bwd_kernel(q, k, dict(q=q, k=k, v=v, g=g, lse=lse,
+                                    delta=delta), kernel)
+    entry = _bwd_entry(kernel, "dq")
     dq = torch.empty_like(q)
     with torch.cuda.device(q.device):
-        _bwd_call("bwd_dq", lib.edl_flash_bwd_dq, q.data_ptr(), k.data_ptr(),
-                  v.data_ptr(), g.data_ptr(), lse.data_ptr(),
+        _bwd_call(*entry, q.data_ptr(),
+                  k.data_ptr(), v.data_ptr(), g.data_ptr(), lse.data_ptr(),
                   delta.data_ptr(), dq.data_ptr(),
-                  *_bwd_dims(q, k, causal, sm_scale))
+                  *_bwd_dims(q, k, causal, sm_scale, kernel))
     return dq
 
 
-def _bwd_dkdv(q, k, v, g, lse, delta, causal, sm_scale):
-    """The ``bwd_dkdv`` kernel: (dk, dv) in k's dtype."""
-    _check_launch(q, k, dict(q=q, k=k, v=v, g=g, lse=lse, delta=delta))
-    lib = _kernel_lib("bwd")
+def _bwd_dkdv(q, k, v, g, lse, delta, causal, sm_scale, kernel=None):
+    """The dk/dv kernel: ``kernel`` ("sm90" or "ffma"), by default the
+    one :func:`bwd_kernel_for` picks; (dk, dv) in k's dtype."""
+    kernel = _bwd_kernel(q, k, dict(q=q, k=k, v=v, g=g, lse=lse,
+                                    delta=delta), kernel)
+    entry = _bwd_entry(kernel, "dkdv")
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     with torch.cuda.device(q.device):
-        _bwd_call("bwd_dkdv", lib.edl_flash_bwd_dkdv, q.data_ptr(),
+        _bwd_call(*entry, q.data_ptr(),
                   k.data_ptr(), v.data_ptr(), g.data_ptr(), lse.data_ptr(),
                   delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                  *_bwd_dims(q, k, causal, sm_scale))
+                  *_bwd_dims(q, k, causal, sm_scale, kernel))
     return dk, dv
 
 
-def flash_bwd(q, k, v, out, g, causal, sm_scale):
+def flash_bwd(q, k, v, out, g, causal, sm_scale, kernel=None):
     """The backward on the card: (dq, dk, dv) in the inputs' dtype, by
-    flash_bwd.cu's three kernels on the current stream. Raises on what
-    they do not take (the forward kernels' domain)."""
+    ``bwd_stats`` and the dq and dk/dv kernels of ``kernel`` (default:
+    :func:`bwd_kernel_for`'s pick) on the current stream. Raises on what
+    they do not take (the forward kernels' domain; ``sm90`` only bf16 at
+    head_dim 64 or 128), before any library loads."""
     if q.dtype != g.dtype or out.dtype != q.dtype:
         raise TypeError("flash backward: q %s, out %s, g %s dtypes differ"
                         % (q.dtype, out.dtype, g.dtype))
+    tensors = dict(q=q, k=k, v=v, out=out, g=g)
+    kernel = _bwd_kernel(q, k, tensors, kernel)
     lse, delta = _bwd_stats(q, k, out, g, causal, sm_scale)
-    dq = _bwd_dq(q, k, v, g, lse, delta, causal, sm_scale)
-    dk, dv = _bwd_dkdv(q, k, v, g, lse, delta, causal, sm_scale)
+    dq = _bwd_dq(q, k, v, g, lse, delta, causal, sm_scale, kernel)
+    dk, dv = _bwd_dkdv(q, k, v, g, lse, delta, causal, sm_scale, kernel)
     return dq, dk, dv
 
 
@@ -460,8 +558,8 @@ class FlashAttentionFunction(torch.autograd.Function):
     """:func:`flash_attention` with a gradient: the forward dispatches as
     :func:`flash_attention` does and saves (q, k, v, out), as the JAX
     package's ``_vjp_fwd``; the backward recomputes by
-    :func:`flash_bwd` on CUDA, :func:`flash_bwd_reference` on the
-    CPU."""
+    :func:`flash_bwd` on CUDA (the kernels :func:`bwd_kernel_for`
+    picks), :func:`flash_bwd_reference` on the CPU."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, sm_scale):
@@ -503,8 +601,8 @@ def flash_attention(q, k, v, causal=False, sm_scale=None):
 #: kernel launches since the last reset (the main path's proof of use):
 #: the total, and by kernel
 flash_attention.launches = 0
-flash_attention.kernel_launches = {name: 0 for name in
-                                   tuple(SOURCES) + BWD_KERNELS}
+flash_attention.kernel_launches = {
+    name: 0 for name in tuple(SOURCES) + BWD_KERNELS + BWD_SM90_KERNELS}
 
 
 def reset_launches():

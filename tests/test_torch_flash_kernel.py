@@ -12,7 +12,8 @@ The tf32x3 kernel's cases alone:
     python -m pytest --noconftest -p no:cacheprovider -q -s \
         tests/test_torch_flash_kernel.py -k tf32x3
 
-The backward kernels' cases alone: ``-k backward``.
+The backward kernels' cases alone: ``-k backward``; the bf16 wgmma
+backward's (``flash_bwd_sm90.cu``) alone: ``-k sm90_backward``.
 
 - The kernel that ``kernel_for`` picks against its plain version over
   head_dim 8 to 256, ragged and unequal q/kv lengths, causal and not,
@@ -24,9 +25,14 @@ The backward kernels' cases alone: ``-k backward``.
 - Each kernel by name over the shapes the others serve: the wgmma
   kernels at their head dims with ragged, unequal and short kv; the
   FFMA kernel on bf16 at head_dim 64 and 128.
-- The backward's three kernels (``flash_bwd.cu``) against
-  ``flash_bwd_reference`` over the same shapes, causal and not, bf16
-  and f32, within ``chip_smoke.check_grads``; the gradient through
+- The backward (``bwd_stats`` and the dq and dk/dv kernels that
+  ``bwd_kernel_for`` picks: ``flash_bwd_sm90.cu`` for bf16 at head_dim
+  64 and 128, ``flash_bwd.cu`` otherwise) against ``flash_bwd_reference`` over
+  the same shapes, causal and not, bf16 and f32, within
+  ``chip_smoke.check_grads``; the sm90 backward by name at its bf16
+  shapes (ragged, unequal, short kv, odd lengths), its lse and delta
+  followed by NaN so that a read past s shows, and on
+  ``chip_smoke.paired_inputs``; the gradient through
   ``flash_attention`` and ``mha`` by autograd.
 - Planted faults: copies of a kernel's source, each with one part
   broken, must fail that same check. This shows the check is tight
@@ -37,7 +43,12 @@ The backward kernels' cases alone: ``-k backward``.
   no lo terms anywhere (TF32 alone). In flash_bwd.cu: kv tiles that no
 query reaches returning early, so that their dk and dv rows keep the
 allocator's junk (causal, s < sk), and the ragged-kv mask of the stats
-kernel (the zero-filled kv tail then counts in each row's lse).
+kernel (the zero-filled kv tail then counts in each row's lse). In
+flash_bwd_sm90.cu: P's lo term dropped in dv, dS's lo term dropped in
+dk and in dq (on ``paired_inputs``, where rounding once shows), query
+rows past s left unmasked in dk/dv (their lse read past the tensor,
+where NaN lies), dk/dv's causal q loop starting one tile late, and
+dq's causal kv loop stopping before its diagonal tile.
 """
 
 import glob
@@ -229,17 +240,18 @@ def test_tf32x3_planted_fault_fails_the_check(gen, tmp_path, monkeypatch,
           % (name, shape, causal, exc.value))
 
 
-def _run_bwd(gen, shape, causal, dtype):
+def _run_bwd(gen, shape, causal, dtype, kernel=None):
     """The backward kernels' (dq, dk, dv) and the plain version's, with
     NaN junk freed into the allocator first, so that rows the kernels do
-    not write show."""
+    not write show: ``kernel``'s dq and dk/dv by name, or the ones
+    ``bwd_kernel_for`` picks."""
     b, h, s, sk, d = shape
     q, k, v = chip_smoke.flash_inputs(b, h, s, sk, d, dtype, gen)
     g = torch.randn((b, h, s, d), generator=gen, device="cuda").to(dtype)
     out = fa.flash_attention(q, k, v, causal)
     junk = [torch.full_like(k, float("nan")) for _ in range(2)]
     del junk
-    got = fa.flash_bwd(q, k, v, out, g, causal, d ** -0.5)
+    got = fa.flash_bwd(q, k, v, out, g, causal, d ** -0.5, kernel)
     torch.cuda.synchronize()
     return got, fa.flash_bwd_reference(q, k, v, out, g, causal, d ** -0.5)
 
@@ -271,8 +283,9 @@ def test_backward_autograd_through_mha(gen, dtype):
     fa.reset_launches()
     out = fa.mha(q, k, v, causal=True)
     got = torch.autograd.grad(out, (q, k, v), g)
-    assert [fa.flash_attention.kernel_launches[n]
-            for n in fa.BWD_KERNELS] == [1, 1, 1]
+    names = fa.bwd_kernel_names(fa.bwd_kernel_for(dtype, 64))
+    assert [fa.flash_attention.kernel_launches[n] for n in names] == [1, 1, 1]
+    assert fa.flash_attention.launches == 4  # and one forward
     t = lambda x: x.detach().transpose(1, 2).contiguous()
     want = fa.flash_bwd_reference(t(q), t(k), t(v), t(out), t(g), True,
                                   64 ** -0.5)
@@ -302,8 +315,112 @@ def test_backward_planted_fault_fails_the_check(gen, tmp_path, monkeypatch,
                                                 causal, dtype):
     monkeypatch.setattr(fa, "_lib_bwd", fa.bind_bwd(
         _planted(tmp_path, fa._SOURCE_BWD, line, broken)))
-    got, want = _run_bwd(gen, shape, causal, dtype)
+    got, want = _run_bwd(gen, shape, causal, dtype, "ffma")
     with pytest.raises(AssertionError, match="disagrees") as exc:
         chip_smoke.check_grads(got, want, dtype, name)
     print("planted backward fault %r at %s causal=%s: %s"
+          % (name, shape, causal, exc.value))
+
+
+def _nan_tail(x):
+    """``x`` copied to the front of a buffer whose tail (64 values) is
+    NaN: a kernel that reads past its end makes NaN."""
+    buf = torch.full((x.numel() + 64,), float("nan"), dtype=x.dtype,
+                     device=x.device)
+    buf[:x.numel()] = x.flatten()
+    return buf[:x.numel()].view_as(x)
+
+
+def _run_sm90_bwd(gen, shape, causal, paired=False):
+    """The sm90 backward by name (``bwd_stats``, then ``bwd_dq_sm90`` and
+    ``bwd_dkdv_sm90`` on lse and delta with a NaN tail, NaN junk freed
+    into the allocator first) and the plain version's gradients; on
+    ``chip_smoke.paired_inputs`` when ``paired``."""
+    b, h, s, sk, d = shape
+    scale = d ** -0.5
+    if paired:
+        q, k, v, g = chip_smoke.paired_inputs(b, h, s, sk, d, torch.bfloat16,
+                                              gen)
+    else:
+        q, k, v = chip_smoke.flash_inputs(b, h, s, sk, d, torch.bfloat16,
+                                          gen)
+        g = torch.randn((b, h, s, d), generator=gen,
+                        device="cuda").to(torch.bfloat16)
+    out = fa.flash_attention(q, k, v, causal)
+    lse, delta = (_nan_tail(x) for x in fa._bwd_stats(q, k, out, g, causal,
+                                                      scale))
+    junk = [torch.full_like(k, float("nan")) for _ in range(2)]
+    del junk
+    fa.reset_launches()
+    dq = fa._bwd_dq(q, k, v, g, lse, delta, causal, scale, "sm90")
+    dk, dv = fa._bwd_dkdv(q, k, v, g, lse, delta, causal, scale, "sm90")
+    torch.cuda.synchronize()
+    assert fa.flash_attention.kernel_launches["bwd_dq_sm90"] == 1
+    assert fa.flash_attention.kernel_launches["bwd_dkdv_sm90"] == 1
+    return (dq, dk, dv), fa.flash_bwd_reference(q, k, v, out, g, causal,
+                                                scale)
+
+
+# the sm90 forward's shapes at the head dims the sm90 backward takes, but
+# s = sk = 1 (one key: dq and dk are exactly zero, and with them the
+# check's atol) in favour of one query row over ragged kv
+BWD_SM90_SHAPES = [x for x in SM90_SHAPES
+                   if x[4] in fa.BWD_SM90_HEAD_DIMS and x[2] > 1] + [
+    (1, 1, 1, 70, 64), (1, 3, 65, 130, 64), (2, 2, 130, 65, 64),
+    (8, 12, 1024, 1024, 64)]
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("shape", BWD_SM90_SHAPES,
+                         ids=["b%dh%ds%dsk%dd%d" % x for x in BWD_SM90_SHAPES])
+def test_sm90_backward_matches_plain_version(gen, shape, causal):
+    got, want = _run_sm90_bwd(gen, shape, causal)
+    chip_smoke.check_grads(got, want, torch.bfloat16,
+                           ("sm90 backward", shape, causal))
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+def test_sm90_backward_on_paired_inputs(gen, causal):
+    """Nearly cancelling pairs, where a bf16 rounding of P or dS would
+    show: the split keeps the check."""
+    got, want = _run_sm90_bwd(gen, (4, 12, 1024, 1024, 64), causal, True)
+    chip_smoke.check_grads(got, want, torch.bfloat16,
+                           ("sm90 backward, paired", causal))
+
+
+# (name, a line of flash_bwd_sm90.cu, its broken form, the shape that
+# shows it, whether causal, whether on paired inputs)
+BWD_SM90_FAULTS = [
+    ("no P_lo in dv", "wgmma_rs(dv_acc, p_lo[kk], g_kk);", "",
+     (4, 12, 1024, 1024, 64), False, True),
+    ("no dS_lo in dk", "wgmma_rs(dk_acc, ds_lo[kk], q_kk);", "",
+     (4, 12, 1024, 1024, 64), False, True),
+    ("no dS_lo in dq", "wgmma_rs(dq_acc, ds_lo[kk], k_kk);", "",
+     (4, 12, 1024, 1024, 64), False, True),
+    ("q rows past s unmasked in dk/dv", "const bool in = qp < s;",
+     "const bool in = true;", (1, 2, 100, 1000, 64), False, False),
+    ("causal q loop one tile late",
+     "const int first = causal ? k0 / BM : 0;",
+     "const int first = causal ? k0 / BM + 1 : 0;", (4, 12, 1024, 1024, 64),
+     True, False),
+    ("no diagonal tile in dq",
+     "if (causal) n_tiles = min(n_tiles, (q0 + BM - 1) / BM + 1);",
+     "if (causal) n_tiles = min(n_tiles, (q0 + BM - 1) / BM);",
+     (4, 12, 1024, 1024, 64), True, False),
+]
+
+
+@pytest.mark.parametrize("name,line,broken,shape,causal,paired",
+                         BWD_SM90_FAULTS,
+                         ids=[f[0].replace(" ", "_").replace("/", "")
+                              for f in BWD_SM90_FAULTS])
+def test_sm90_backward_planted_fault_fails_the_check(
+        gen, tmp_path, monkeypatch, name, line, broken, shape, causal,
+        paired):
+    monkeypatch.setattr(fa, "_lib_bwd_sm90", fa.bind_bwd_sm90(
+        _planted(tmp_path, fa._SOURCE_BWD_SM90, line, broken)))
+    got, want = _run_sm90_bwd(gen, shape, causal, paired)
+    with pytest.raises(AssertionError, match="disagrees") as exc:
+        chip_smoke.check_grads(got, want, torch.bfloat16, name)
+    print("planted sm90 backward fault %r at %s causal=%s: %s"
           % (name, shape, causal, exc.value))

@@ -1,5 +1,6 @@
-"""Which flash kernel a launch takes, why the sm90 kernel splits P, and
-why the tf32x3 kernel splits every operand.
+"""Which flash kernel a launch takes, why the sm90 kernel splits P, why
+the tf32x3 kernel splits every operand, and why the sm90 backward splits
+P and dS.
 
 On the CPU, no card needed:
 
@@ -24,9 +25,22 @@ On the CPU, no card needed:
   the tensor core reads truncated to TF32 (``split`` True: lo.hi +
   hi.lo + hi.hi). On the smoke's f32 inputs, TF32 alone fails the f32
   check and the split passes it.
+- ``bwd_kernel_for`` sends bf16 at head_dim 64 and 128 to the bf16
+  wgmma backward (``csrc/flash_bwd_sm90.cu``) and everything else to the FFMA
+  one (``csrc/flash_bwd.cu``); asked for by name, the sm90 backward
+  refuses what it does not take before any library loads.
+- The numerics decision behind the sm90 backward. :func:`emulate_sm90_bwd`
+  repeats its arithmetic in plain torch: f32 scores and dp from bf16
+  operands (exact products, f32 sums), the scale after the product, P and
+  dS in f32, then rounded to bf16 once or split into hi and lo before the
+  products that take them. On ``chip_smoke.bwd_phase``'s inputs the split
+  passes ``chip_smoke.check_grads`` (``BWD_TOL``) by a wide margin;
+  rounding once passes only narrowly, and its margin shrinks as the
+  tensors grow.
 
 Run as a script, it prints each emulation's worst excess over the
-check's limit at the smoke's own sizes (b4 h12 d64):
+check's limit at the smoke's own sizes (b4 h12 d64; the backward's at
+b1 h2 and b4 h12):
 
     python tests/test_torch_flash_numerics.py
 """
@@ -132,6 +146,62 @@ def _inputs(b, h, s, sk, dtype=torch.bfloat16):
     return chip_smoke.flash_inputs(b, h, s, sk, 64, dtype, gen, device="cpu")
 
 
+def _split(x, split):
+    """f32 ``x`` as the bf16 operands of the products that take it: its
+    bf16 rounding, and (``split``) the bf16 rounding of the remainder."""
+    hi = x.to(torch.bfloat16).float()
+    return [hi, (x - hi).to(torch.bfloat16).float()] if split else [hi]
+
+
+def emulate_sm90_bwd(q, k, v, out, g, causal, scale, split, drop_lo=None):
+    """The sm90 backward's arithmetic in plain torch: (dq, dk, dv) in
+    bf16 from the lse and delta that ``bwd_stats`` gives. s and dp are
+    f32 sums of exact products of the bf16 inputs, the scale applied
+    after the product; P = exp(s * scale - lse) (0 where masked) and
+    dS = P (dp - delta) in f32; each is rounded to bf16 once (``split``
+    False) or split into hi and lo (``split`` True) before the products
+    that take it (dv = P^T g, dk = dS^T q, dq = dS k), whose terms are
+    summed in f32; dq and dk take the scale at the end. ``drop_lo``
+    ("dv", "dk" or "dq") drops the lo term of that one product."""
+    s, sk = q.shape[2], k.shape[2]
+    lse, delta = fa.flash_bwd_stats_reference(q, k, out, g, causal, scale)
+    q32, k32, v32, g32 = (x.float() for x in (q, k, v, g))
+    mask = fa._block_mask(0, sk, s, sk, causal, q.device)
+    scores = torch.einsum("bhqd,bhkd->bhqk", q32, k32) * scale
+    p = torch.where(mask, torch.exp(scores - lse[..., None]), 0.0)
+    ds = p * (torch.einsum("bhqd,bhkd->bhqk", g32, v32) - delta[..., None])
+    op = lambda x, name: _split(x, split and drop_lo != name)
+    dv = sum(torch.einsum("bhqk,bhqd->bhkd", x, g32) for x in op(p, "dv"))
+    dk = sum(torch.einsum("bhqk,bhqd->bhkd", x, q32)
+             for x in op(ds, "dk")) * scale
+    dq = sum(torch.einsum("bhqk,bhkd->bhqd", x, k32)
+             for x in op(ds, "dq")) * scale
+    return tuple(x.to(torch.bfloat16) for x in (dq, dk, dv))
+
+
+def _bwd_inputs(b, h, s, sk):
+    """``chip_smoke.bwd_phase``'s inputs on the CPU (its seed, d64
+    bf16): q, k, v and g."""
+    gen = torch.Generator().manual_seed(chip_smoke.SEED + 5)
+    q, k, v = chip_smoke.flash_inputs(b, h, s, sk, 64, torch.bfloat16, gen,
+                                      device="cpu")
+    g = torch.randn((b, h, s, 64), generator=gen).to(torch.bfloat16)
+    return q, k, v, g
+
+
+def bwd_margin(b, h, s, sk, causal, split):
+    """The emulated sm90 backward's worst excess over ``check_grads``'s
+    atol (the check passes at or below 1) against
+    ``flash_bwd_reference``; raises where the check fails."""
+    q, k, v, g = _bwd_inputs(b, h, s, sk)
+    out = fa.blockwise_reference(q, k, v, causal, 0.125)
+    want = fa.flash_bwd_reference(q, k, v, out, g, causal, 0.125)
+    got = emulate_sm90_bwd(q, k, v, out, g, causal, 0.125, split)
+    return chip_smoke.check_grads(got, want, torch.bfloat16,
+                                  ("emulated sm90 backward", s, sk, causal,
+                                   "split" if split else "rounded once"))[1]
+
+
 def excess(out, ref, dtype=torch.bfloat16):
     """The worst |out - ref| - rtol |ref| as a multiple of the check's
     atol (the check passes at or below 1)."""
@@ -151,6 +221,16 @@ def test_kernel_for_picks_by_dtype_and_head_dim(dtype, head_dim, kernel):
     assert fa.kernel_for(dtype, head_dim) == kernel
 
 
+@pytest.mark.parametrize("dtype,head_dim,kernel", [
+    (torch.bfloat16, 64, "sm90"), (torch.bfloat16, 128, "sm90"),
+    (torch.bfloat16, 96, "ffma"), (torch.bfloat16, 8, "ffma"),
+    (torch.float32, 64, "ffma"), (torch.float32, 128, "ffma"),
+])
+def test_bwd_kernel_for_picks_by_dtype_and_head_dim(dtype, head_dim, kernel):
+    assert fa.bwd_kernel_for(dtype, head_dim) == kernel
+    assert fa.bwd_kernel_names(kernel)[0] == "bwd_stats"
+
+
 @pytest.mark.parametrize("dtype,head_dim,match", [
     (torch.float32, 64, "takes bfloat16"),
     (torch.bfloat16, 96, "takes bfloat16"),
@@ -164,6 +244,34 @@ def test_sm90_refuses_what_it_does_not_take(dtype, head_dim, match):
         fa._launch(q, q, q, True, head_dim ** -0.5, "sm90")
     with pytest.raises(ValueError, match="no flash kernel"):
         fa._launch(q, q, q, True, head_dim ** -0.5, "triton")
+
+
+@pytest.mark.parametrize("dtype,head_dim", [
+    (torch.float32, 64), (torch.bfloat16, 96), (torch.bfloat16, 256),
+])
+def test_sm90_backward_refuses_what_it_does_not_take(monkeypatch, dtype,
+                                                     head_dim):
+    """Asked for by name, the sm90 backward (dq, dk/dv and the whole of
+    ``flash_bwd``) refuses anything but bf16 at head_dim 64 or 128, and
+    every
+    backward refuses a kernel it does not have, before any library
+    loads: nothing gives way to the FFMA kernels."""
+    loads = []
+    monkeypatch.setattr(fa, "_kernel_lib", loads.append)
+    q = torch.zeros((1, 1, 8, head_dim), dtype=dtype)
+    lse = torch.zeros((1, 1, 8))
+    scale = head_dim ** -0.5
+    for call in (lambda kernel: fa._bwd_dq(q, q, q, q, lse, lse, True,
+                                           scale, kernel),
+                 lambda kernel: fa._bwd_dkdv(q, q, q, q, lse, lse, True,
+                                             scale, kernel),
+                 lambda kernel: fa.flash_bwd(q, q, q, q, q, True, scale,
+                                             kernel)):
+        with pytest.raises(ValueError, match="takes bfloat16 at head_dim"):
+            call("sm90")
+        with pytest.raises(ValueError, match="no flash backward kernel"):
+            call("triton")
+    assert loads == []
 
 
 @pytest.mark.parametrize("dtype,head_dim", [
@@ -188,7 +296,7 @@ def test_cpu_tensors_run_the_plain_version_and_count_nothing():
     assert fa.flash_attention.launches == 0
     assert fa.flash_attention.kernel_launches == {
         "sm90": 0, "tf32x3": 0, "ffma": 0, "bwd_stats": 0, "bwd_dq": 0,
-        "bwd_dkdv": 0}
+        "bwd_dkdv": 0, "bwd_dq_sm90": 0, "bwd_dkdv_sm90": 0}
 
 
 @pytest.mark.parametrize("s,sk,causal", CASES,
@@ -217,6 +325,42 @@ def test_tf32_alone_fails_the_f32_check_and_the_split_passes(s, sk, causal):
                            torch.float32, "3xTF32")
 
 
+# (s, sk, causal): the backward's cases, CASES and the smoke's causal
+# s < sk (kv rows that no query reaches)
+BWD_CASES = CASES + [(100, 1000, True)]
+
+
+@pytest.mark.parametrize("s,sk,causal", BWD_CASES,
+                         ids=["s%dsk%d%s" % (s, sk, "c" if c else "f")
+                              for s, sk, c in BWD_CASES])
+def test_sm90_backward_split_passes_the_check(s, sk, causal):
+    """P and dS split into bf16 hi and lo: the emulated sm90 backward
+    passes ``check_grads`` (the unchanged ``BWD_TOL``) against
+    ``flash_bwd_reference`` with room to spare."""
+    assert bwd_margin(1, 2, s, sk, causal, True) < 0.05
+
+
+@pytest.mark.parametrize("drop_lo", [None, "dv", "dk", "dq"])
+def test_paired_inputs_show_a_dropped_lo_term(drop_lo):
+    """On ``chip_smoke.paired_inputs`` (nearly cancelling pairs), the
+    split passes ``check_grads`` and dropping the lo term of any one
+    product (P in dv, dS in dk or in dq) fails it: the inputs of the
+    card-only tests' planted faults, shown on the CPU."""
+    gen = torch.Generator().manual_seed(chip_smoke.SEED + 5)
+    q, k, v, g = chip_smoke.paired_inputs(1, 2, 256, 256, 64, torch.bfloat16,
+                                          gen, device="cpu")
+    out = fa.blockwise_reference(q, k, v, False, 0.125)
+    want = fa.flash_bwd_reference(q, k, v, out, g, False, 0.125)
+    got = emulate_sm90_bwd(q, k, v, out, g, False, 0.125, True, drop_lo)
+    if drop_lo is None:
+        assert chip_smoke.check_grads(got, want, torch.bfloat16,
+                                      "paired, split")[1] < 0.1
+    else:
+        with pytest.raises(AssertionError, match=" %s max_abs_err" % drop_lo):
+            chip_smoke.check_grads(got, want, torch.bfloat16,
+                                   "paired, no lo in " + drop_lo)
+
+
 def main():
     print("worst |out - ref| - rtol |ref| over the atol, b4 h12 d64")
     for s, sk, causal in CASES:
@@ -233,6 +377,17 @@ def main():
                               torch.float32) for x in (False, True))
         print("f32 %s: TF32 alone %.2fx, 3xTF32 %.4fx"
               % (what, once, split))
+    print("the sm90 backward vs flash_bwd_reference, check_grads: worst "
+          "excess over the atol")
+    for b, h in ((1, 2), (4, 12)):
+        for s, sk, causal in BWD_CASES:
+            try:
+                once = "%.4fx" % bwd_margin(b, h, s, sk, causal, False)
+            except AssertionError as e:
+                once = "fails (%s)" % str(e).split(": ")[-1]
+            print("b%d h%d s=%d sk=%d %s: P, dS rounded once %s, split %.4fx"
+                  % (b, h, s, sk, "causal" if causal else "full", once,
+                     bwd_margin(b, h, s, sk, causal, True)))
 
 
 if __name__ == "__main__":
