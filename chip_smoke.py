@@ -15,7 +15,12 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    head_dim 64, lm_teacher's prefills) and ``ffma`` (the other head
    dims); all are held and timed, ``ffma`` also by name at the served
    bf16 shape and at lm_teacher's longest prefill, and beside every
-   f32 ``tf32x3`` row on the same inputs, for the comparison;
+   f32 ``tf32x3`` row on the same inputs, for the comparison. Every
+   case launches its kernel once more with an lse buffer, as the
+   training path does: the output must be bit-identical to the launch
+   without it, every row's lse within ``LSE_TOL`` of the backward's pass
+   1 (``flash_bwd_stats_reference``) and nothing written past the
+   rows; that launch is timed too;
 3. slice: start the port's full-width GPT-2s ``gpt_teacher`` on the
    card, send ``predict`` requests through the port's ``RpcClient``
    (some concurrent), check the replies, check that every layer's
@@ -23,19 +28,22 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    others, and check the served logits against the same model run
    with dense attention;
 3b. backward kernels: hold the flash backward, as ``flash_bwd``
-   dispatches it (``bwd_stats`` from ``flash_bwd.cu``, then the dq and
-   dk/dv kernels ``bwd_kernel_for`` picks: ``flash_bwd_sm90.cu``'s bf16
-   wgmma ``bwd_dq_sm90``/``bwd_dkdv_sm90`` at head_dim 64 and 128,
+   dispatches it on the lse that the forward kernel wrote
+   (``bwd_delta`` from ``flash_bwd.cu``, then the dq and dk/dv kernels
+   ``bwd_kernel_for`` picks: ``flash_bwd_sm90.cu``'s bf16 wgmma
+   ``bwd_dq_sm90``/``bwd_dkdv_sm90`` at head_dim 64 and 128,
    ``flash_bwd.cu``'s FFMA ``bwd_dq``/``bwd_dkdv`` otherwise), against
-   ``flash_bwd_reference`` on the card at the training shapes (GPT-2s
+   ``flash_bwd_reference`` (which recomputes the row statistics, as the
+   JAX backward does) on the card at the training shapes (GPT-2s
    b8 h12 s1024 causal, BERT-base b32 h12 s512 full, bf16), in f32, at
    ragged, unequal and short kv, d128, d96, the K2 regime and on
    ``paired_inputs`` (nearly cancelling pairs, where a bf16 rounding of
    P or dS would show); at the
    two training shapes also the FFMA dq and dk/dv by name, held to the
-   same check. Time each kernel, the whole backward, the plain version
-   and SDPA's backward (``torch.autograd.grad`` on a retained graph, a
-   yardstick the port never calls);
+   same check; ``bwd_delta`` alone against the plain rowsum(g * out)
+   within ``DELTA_RTOL``. Time each kernel, the whole backward, the
+   plain version and SDPA's backward (``torch.autograd.grad`` on a
+   retained graph, a yardstick the port never calls);
 4. decode: start the port's full-width GPT-2s ``lm_teacher`` (f32,
    8 KV slots) on the card and drive its decode plane through the
    ``RpcClient``: 10 concurrent ``lm_generate`` calls (two wait for a
@@ -59,18 +67,19 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    over f32 params, remat, ``adamw(1e-4)``, batch 8 x 1024) with flash
    and again with dense attention, then ``run_bert`` at bert-base
    (batch 32 x 512) with flash. Each flash step must launch 24 ``sm90``
-   forwards (remat runs the forward twice) and 12 each of ``bwd_stats``,
-   ``bwd_dq_sm90`` and ``bwd_dkdv_sm90`` (none of the FFMA dq and
-   dk/dv), the dense run none; on the same weights and batch the flash
+   forwards (remat runs the forward twice; each writes its lse) and 12
+   each of ``bwd_delta``, ``bwd_dq_sm90`` and ``bwd_dkdv_sm90`` (none of
+   the FFMA dq and dk/dv; there is no stats kernel), the dense run
+   none; on the same weights and batch the flash
    first-step loss must be within 1e-2 relative of the dense one and
    each parameter's gradient within relative Frobenius 2e-2; every
    loss finite. Prints tokens/s, step ms, implied TFLOP/s, MFU against
    the H100's 989 TFLOP/s bf16, peak memory and a profile of one step
    with the device-busy share.
 
-Prints a ``kernels`` JSON line (the three forward kernels and the
-backward's five, launches by path), the card's name and power limit,
-and last
+Prints a ``kernels`` JSON line (the three forward kernels, with and
+without lse, and the backward's five, launches by path), the card's
+name and power limit, and last
 ``{"ok": true, "device": {...}}``. Exits
 non-zero, printing no result, when CUDA is unavailable.
 """
@@ -139,6 +148,19 @@ Q_STD = 2.5
 # 2**-7 of the value); in f32 only the order of summation differs.
 KERNEL_TOL = {torch.bfloat16: (1e-4, 2.0 ** -7),
               torch.float32: (1e-5, 1e-5)}
+# a forward kernel's lse vs the backward's pass 1 on the same inputs
+# (flash_bwd_stats_reference), elementwise: |lse - ref| <= atol + rtol
+# |ref|. Both are f32 m + log(max(l, 1e-30)) over the same scaled scores,
+# of magnitude up to ~10 at Q_STD, summed in other orders (and, where the
+# scale is not a power of two, scaled after the product where the
+# reference scales q first): they differ by about 1e-6. An lse without
+# log(l) is off by up to log(sk).
+LSE_TOL = (1e-4, 1e-5)
+# bwd_delta vs the plain rowsum(g * out) on the same inputs, by row:
+# |got - ref| <= DELTA_RTOL * rowsum(|g * out|). Both sum the same f32
+# products (exact from bf16) in other orders: d * 2**-24 of the sum of
+# magnitudes bounds that at d = 256, the widest head the kernel takes.
+DELTA_RTOL = 2.0 ** -16
 # served logits (flash) vs the same model with dense attention: the dense
 # path rounds q * scale to bf16 before its f32 upcast, flash scales after
 # it, and the difference passes through 12 bf16 layers. Allowed: four
@@ -230,21 +252,27 @@ def time_ms(fn, flush, reps):
     return statistics.median(times)
 
 
-def device_ms(fn, reps=5):
-    """Device time of the flash kernel in one call of ``fn`` by
-    torch.profiler, the mean over ``reps`` calls back to back (L2 warm):
-    the kernel's own time, without the idle gaps that CUDA events also
-    count around a launch that takes tens of microseconds."""
+def device_ms(fn, key="flash_fwd", flush=None, reps=5):
+    """Device time of one call of ``fn`` by torch.profiler, the mean over
+    ``reps`` calls: the time of the kernels whose name holds ``key``
+    (None: every kernel), without the idle gaps that CUDA events also
+    count around a launch that takes tens of microseconds. Calls run
+    back to back (L2 warm), or each after an L2 flush by ``flush`` (then
+    ``key`` names the kernel, so the flush's own is not counted)."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
+            if flush is not None:
+                flush.zero_()
             fn()
         torch.cuda.synchronize()
     us = sum(e.self_device_time_total for e in prof.key_averages()
-             if "flash_fwd" in e.key)
+             if e.device_type == DeviceType.CUDA
+             and (key is None or key in e.key))
     return us / 1e3 / reps
 
 
@@ -310,12 +338,66 @@ def check_flash(out, ref, dtype, case):
     return err
 
 
+def launch_with_lse(q, k, v, causal, kernel=None, tail=0):
+    """The forward kernel ``kernel`` (default: the one ``kernel_for``
+    picks) with an lse buffer, as the training path launches it: (out,
+    lse). With ``tail``, lse is the front of a NaN buffer ``tail`` values
+    longer (lse's own rows NaN too before the launch), so that a row
+    left unwritten, or a write past the rows, shows."""
+    d = q.shape[-1]
+    n = q.shape[:3].numel()
+    buf = torch.full((n + tail,), float("nan"), device=q.device)
+    lse = buf[:n].view(q.shape[:3])
+    out = fa._launch(q, k, v, causal, d ** -0.5, kernel, lse=lse)
+    if tail:
+        torch.cuda.synchronize()
+        if not torch.isnan(buf[n:]).all():
+            raise AssertionError("flash kernel %s wrote past lse's rows"
+                                 % kernel)
+    return out, lse
+
+
+def check_lse(lse, ref, case):
+    """Hold a forward kernel's lse against the backward's pass 1 within
+    ``LSE_TOL``; returns the max abs error."""
+    atol, rtol = LSE_TOL
+    diff = (lse - ref).abs()
+    excess = (diff - rtol * ref.abs()).max().item()
+    err = diff.max().item()
+    if not torch.isfinite(lse).all() or not excess <= atol:
+        raise AssertionError(
+            "flash kernel lse disagrees with the backward's pass 1: %s "
+            "max_abs_err %g, max of |lse - ref| - %g |ref| is %g > %g"
+            % (case, err, rtol, excess, atol))
+    return err
+
+
+def check_delta(delta, out, g, case):
+    """Hold ``bwd_delta``'s output against the plain rowsum(g * out)
+    within ``DELTA_RTOL`` of each row's sum of magnitudes; returns the
+    max abs error."""
+    prod = g.float() * out.float()
+    diff = (delta - prod.sum(-1)).abs()
+    limit = DELTA_RTOL * prod.abs().sum(-1)
+    if not torch.isfinite(delta).all() or not (diff <= limit).all():
+        raise AssertionError(
+            "bwd_delta disagrees with its plain version: %s max_abs_err %g, "
+            "worst |got - ref| / rowsum|g * out| %g > %g"
+            % (case, diff.max().item(),
+               (diff / limit.clamp_min(1e-30)).max().item() * DELTA_RTOL,
+               DELTA_RTOL))
+    return diff.max().item()
+
+
 def kernel_phase(gpu):
     """Phase 2: the flash kernels vs their plain version, timed. A case
     names its kernel: None for the one ``kernel_for`` picks, the way the
     served path launches it, or "ffma" to run flash_fwd.cu on a shape
     that the served path sends to another kernel. Every f32 row of
-    ``tf32x3`` also times ``ffma`` on the same inputs."""
+    ``tf32x3`` also times ``ffma`` on the same inputs. Every case also
+    launches its kernel with an lse buffer (``launch_with_lse``): the
+    output bit-identical, the lse within ``LSE_TOL`` of the backward's
+    pass 1, timed."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
@@ -369,13 +451,26 @@ def kernel_phase(gpu):
         margin = ((out.float() - ref.float()).abs()
                   - rtol * ref.float().abs()).max().item() / atol
         mean_ref = ref.float().abs().mean().item()
+        out_lse, lse = launch_with_lse(q, k, v, causal, kernel, tail=64)
+        if not torch.equal(out_lse, out):
+            raise AssertionError("flash kernel %s: the output with lse is "
+                                 "not the output without it" % kernel)
+        lse_err = check_lse(lse, fa.flash_bwd_stats_reference(  # its lse
+            q, k, out, out, causal, d ** -0.5)[0],
+            (kernel, b, h, s, sk, d, dtype, causal))
+        del out_lse, lse
         reps = 20 if s <= 1024 else 5
         ms = time_ms(run, flush, reps)
-        ffma_ms = dev_ms = ffma_dev_ms = None
+        # the training path's launch: lse allocated, not filled
+        lse_buf = torch.empty(q.shape[:3], device="cuda")
+        with_lse = lambda: fa._launch(q, k, v, causal, d ** -0.5, kernel,
+                                      lse=lse_buf)
+        lse_ms = time_ms(with_lse, flush, reps)
+        ffma_ms = dev_ms = lse_dev_ms = ffma_dev_ms = None
         if kernel == "tf32x3":
             ffma_ms = time_ms(lambda: by_name("ffma"), flush, reps)
-        if what == "lm prefill":
-            dev_ms = device_ms(run)
+        if what in ("slice", "lm prefill"):
+            dev_ms, lse_dev_ms = device_ms(run), device_ms(with_lse)
             if kernel == "tf32x3":
                 ffma_dev_ms = device_ms(lambda: by_name("ffma"))
         plain_ms = time_ms(lambda: fa.blockwise_reference(
@@ -389,23 +484,28 @@ def kernel_phase(gpu):
                    dtype=str(dtype).split(".")[-1],
                    causal=causal, what=what, max_abs_err=err,
                    excess_over_atol=margin, mean_abs_out=mean_ref, ms=ms,
+                   lse_ms=lse_ms, lse_max_abs_err=lse_err,
                    ffma_ms=ffma_ms, device_ms=dev_ms,
+                   lse_device_ms=lse_dev_ms,
                    ffma_device_ms=ffma_dev_ms, plain_ms=plain_ms,
                    library_ms=library_ms,
                    bound_ms=bound_ms, bound_by=bound_by,
                    bound_rate=bound_rate)
         log("kernel flash_fwd %s b=%d h=%d s=%d sk=%d d=%d %s %s (%s): "
             "max_abs_err %.3g (tol %g + %g |ref|, worst excess %.3g of the "
-            "atol; mean |ref| %.3g); kernel %.4f ms%s, plain %.4f ms, sdpa "
-            "%.4f ms, bound %.2f us (%s, %s)%s [%s]"
+            "atol; mean |ref| %.3g), lse max_abs_err %.3g; kernel %.4f ms, "
+            "with lse %.4f ms%s, plain %.4f ms, sdpa %.4f ms, bound %.2f us "
+            "(%s, %s)%s [%s]"
             % (kernel, b, h, s, sk, d, row["dtype"],
                "causal" if causal else "full", what, err,
-               *KERNEL_TOL[dtype], margin, mean_ref, ms,
+               *KERNEL_TOL[dtype], margin, mean_ref, lse_err, ms, lse_ms,
                "" if ffma_ms is None else ", ffma %.4f ms" % ffma_ms,
                plain_ms, library_ms, bound_ms * 1e3, bound_by, bound_rate,
-               "" if dev_ms is None else "; profiled device time %.4f ms%s"
-               % (dev_ms, "" if ffma_dev_ms is None
-                  else ", ffma %.4f ms" % ffma_dev_ms), gpu))
+               "" if dev_ms is None else "; profiled device time %.4f ms, "
+               "with lse %.4f ms%s" % (dev_ms, lse_dev_ms,
+                                       "" if ffma_dev_ms is None
+                                       else ", ffma %.4f ms" % ffma_dev_ms),
+               gpu))
         results.append(row)
     del flush
     return results
@@ -433,22 +533,23 @@ def check_grads(got, want, dtype, case):
 
 
 def bwd_bound_ms(b, h, s, sk, d, dtype, causal, stage):
-    """Least time for one stage of the backward (``"bwd_stats"``,
+    """Least time for one stage of the backward (``"bwd_delta"``,
     ``"bwd_dq"``, ``"bwd_dkdv"``, or ``"all"``: the whole function): its
     inputs read once and outputs written once over the memory rate, or
     its products (2 d flops per (query, key) pair each; under causal,
     row i meets min(i + 1, sk) keys) over the input type's peak (f32:
     three TF32 passes, the 3xTF32 split, as the forward's bound). The
     whole backward needs five products (s, dp, dv, dq, dk), reads q, k,
-    v, out, g and writes dq, dk, dv; the stats kernel one product (s),
-    dq three (s, dp, dq), dk/dv four (s, dp, dv, dk), with lse and
-    delta (f32) between them. Returns (ms, "bytes" or "operations")."""
+    v, out, g and the forward's lse and writes dq, dk, dv; the delta
+    kernel reads out and g and writes delta (no product), dq does three
+    products (s, dp, dq), dk/dv four (s, dp, dv, dk), with lse and delta
+    (f32) read by both. Returns (ms, "bytes" or "operations")."""
     item = torch.tensor([], dtype=dtype).element_size()
     keys = sum(min(i + 1, sk) for i in range(s)) if causal else s * sk
     qs, ks, st = s * d * item, sk * d * item, s * 4   # one (b, h)'s rows
     products, nbytes = {
-        "all": (5, 3 * qs + 2 * ks + qs + 2 * ks),
-        "bwd_stats": (1, 3 * qs + ks + 2 * st),
+        "all": (5, 3 * qs + 2 * ks + st + qs + 2 * ks),
+        "bwd_delta": (0, 2 * qs + st),
         "bwd_dq": (3, 2 * qs + 2 * ks + 2 * st + qs),
         "bwd_dkdv": (4, 2 * qs + 2 * ks + 2 * st + 2 * ks),
     }[stage]
@@ -461,13 +562,16 @@ def bwd_bound_ms(b, h, s, sk, d, dtype, causal, stage):
 
 
 def bwd_phase(gpu):
-    """Phase 3b: the backward as ``flash_bwd`` dispatches it against
-    ``flash_bwd_reference`` on the same (q, k, v, out, g), timed: each
-    kernel alone (on the lse and delta the stats kernel made), the three
-    in turn (``flash_bwd``), the plain version, and SDPA's backward. At
-    the training shapes the FFMA dq and dk/dv kernels also run by name,
-    held to the same check and timed beside the kernels that replaced
-    them there."""
+    """Phase 3b: the backward as ``flash_bwd`` dispatches it, on the lse
+    that the forward kernel wrote, against ``flash_bwd_reference`` (which
+    recomputes the row statistics) on the same (q, k, v, out, g), timed:
+    each kernel alone (dq and dk/dv on that lse and ``bwd_delta``'s
+    delta), the three in turn (``flash_bwd``), the plain version (given
+    the same lse, the kernels' data flow), and SDPA's backward. The
+    forward's lse is held against the backward's pass 1 and
+    ``bwd_delta`` against the plain delta. At the training shapes the
+    FFMA dq and dk/dv kernels also run by name, held to the same check
+    and timed beside the kernels that replaced them there."""
     flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
     f32, bf16 = torch.float32, torch.bfloat16
@@ -489,7 +593,7 @@ def bwd_phase(gpu):
     for b, h, s, sk, d, dtype, causal, what in cases:
         scale = d ** -0.5
         kernel = fa.bwd_kernel_for(dtype, d)
-        _, dq_name, dkdv_name = fa.bwd_kernel_names(kernel)
+        delta_name, dq_name, dkdv_name = fa.bwd_kernel_names(kernel)
         by_name = what.endswith("train") and kernel != "ffma"
         if what == "paired":
             q, k, v, g = paired_inputs(b, h, s, sk, d, dtype, gen)
@@ -497,8 +601,8 @@ def bwd_phase(gpu):
             q, k, v = flash_inputs(b, h, s, sk, d, dtype, gen)
             g = torch.randn((b, h, s, d), generator=gen,
                             device="cuda").to(dtype)
-        out = fa.flash_attention(q, k, v, causal)
-        got = fa.flash_bwd(q, k, v, out, g, causal, scale)
+        out, lse = launch_with_lse(q, k, v, causal)
+        got = fa.flash_bwd(q, k, v, out, g, lse, causal, scale)
         torch.cuda.synchronize()
         want = fa.flash_bwd_reference(q, k, v, out, g, causal, scale)
         case = (b, h, s, sk, d, str(dtype).split(".")[-1], causal)
@@ -506,28 +610,21 @@ def bwd_phase(gpu):
         ffma_err = ffma_margin = None
         if by_name:
             ffma_err, ffma_margin = check_grads(
-                fa.flash_bwd(q, k, v, out, g, causal, scale, "ffma"), want,
-                dtype, case + ("ffma",))
-        lse, delta = fa._bwd_stats(q, k, out, g, causal, scale)
-        stats_want = fa.flash_bwd_stats_reference(q, k, out, g, causal,
-                                                  scale)
-        stats_err = max((a - w).abs().max().item()
-                        for a, w in zip((lse, delta), stats_want))
-        if not stats_err <= 1e-3 * max(1.0, stats_want[1].abs().max()
-                                       .item()):
-            raise AssertionError("bwd_stats disagrees with its plain "
-                                 "version: %s max_abs_err %g"
-                                 % (case, stats_err))
+                fa.flash_bwd(q, k, v, out, g, lse, causal, scale, "ffma"),
+                want, dtype, case + ("ffma",))
+        lse_err = check_lse(lse, fa.flash_bwd_stats_reference(
+            q, k, out, g, causal, scale)[0], case)
+        delta = fa._bwd_delta(out, g)
+        delta_err = check_delta(delta, out, g, case)
         reps = 10 if s <= 1024 else 3
         stage_ms = {
-            "bwd_stats": time_ms(lambda: fa._bwd_stats(
-                q, k, out, g, causal, scale), flush, reps),
+            delta_name: time_ms(lambda: fa._bwd_delta(out, g), flush, reps),
             dq_name: time_ms(lambda: fa._bwd_dq(
                 q, k, v, g, lse, delta, causal, scale), flush, reps),
             dkdv_name: time_ms(lambda: fa._bwd_dkdv(
                 q, k, v, g, lse, delta, causal, scale), flush, reps),
             "all": time_ms(lambda: fa.flash_bwd(
-                q, k, v, out, g, causal, scale), flush, reps),
+                q, k, v, out, g, lse, causal, scale), flush, reps),
         }
         if by_name:
             stage_ms.update({
@@ -538,18 +635,31 @@ def bwd_phase(gpu):
                     q, k, v, g, lse, delta, causal, scale, "ffma"), flush,
                     reps),
                 "all_ffma": time_ms(lambda: fa.flash_bwd(
-                    q, k, v, out, g, causal, scale, "ffma"), flush, reps),
+                    q, k, v, out, g, lse, causal, scale, "ffma"), flush,
+                    reps),
             })
         plain_ms = time_ms(lambda: fa.flash_bwd_reference(
-            q, k, v, out, g, causal, scale), flush, max(2, reps // 4))
-        plain_stats_ms = time_ms(lambda: fa.flash_bwd_stats_reference(
-            q, k, out, g, causal, scale), flush, max(2, reps // 4))
+            q, k, v, out, g, causal, scale, lse=lse), flush,
+            max(2, reps // 4))
+        plain_delta_ms = time_ms(lambda: fa.flash_bwd_delta_reference(
+            out, g), flush, reps)
         leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
         sdpa_out = torch.nn.functional.scaled_dot_product_attention(
             *leaves, is_causal=causal)
-        library_ms = time_ms(lambda: torch.autograd.grad(
-            sdpa_out, leaves, g, retain_graph=True), flush, reps)
-        del sdpa_out, leaves
+        sdpa_bwd = lambda: torch.autograd.grad(sdpa_out, leaves, g,
+                                               retain_graph=True)
+        library_ms = time_ms(sdpa_bwd, flush, reps)
+        # device times by torch.profiler: bwd_delta after an L2 flush (its
+        # inputs fit in L2); the whole backward and SDPA's, L2 warm, every
+        # kernel they launch
+        dev_ms = {
+            "bwd_delta": device_ms(lambda: fa._bwd_delta(out, g),
+                                   "bwd_delta", flush),
+            "all": device_ms(lambda: fa.flash_bwd(
+                q, k, v, out, g, lse, causal, scale), None),
+            "library": device_ms(sdpa_bwd, None),
+        }
+        del sdpa_out, leaves, sdpa_bwd
         # a kernel's bound is its stage's, whichever kernel runs it
         bounds = {stage: bwd_bound_ms(b, h, s, sk, d, dtype, causal,
                                       stage.replace("_sm90", "")
@@ -559,22 +669,26 @@ def bwd_phase(gpu):
                    what=what, kernel=kernel, max_abs_err=err,
                    excess_over_atol=margin, ffma_max_abs_err=ffma_err,
                    ffma_excess_over_atol=ffma_margin,
-                   stats_max_abs_err=stats_err, ms=stage_ms,
-                   plain_ms=plain_ms, plain_stats_ms=plain_stats_ms,
-                   library_ms=library_ms,
+                   lse_max_abs_err=lse_err, delta_max_abs_err=delta_err,
+                   ms=stage_ms, device_ms=dev_ms, plain_ms=plain_ms,
+                   plain_delta_ms=plain_delta_ms, library_ms=library_ms,
                    bound_ms={k_: v_[0] for k_, v_ in bounds.items()},
                    bound_by={k_: v_[1] for k_, v_ in bounds.items()})
         log("kernel flash_bwd %s b=%d h=%d s=%d sk=%d d=%d %s %s (%s): "
             "dq/dk/dv max_abs_err %.3g (worst excess %.3g of the atol), "
-            "lse/delta %.3g; stats %.4f ms, dq %.4f ms, dkdv %.4f ms, all "
-            "three %.4f ms (bound %.2f us, %s; dq %.2f us, dkdv %.2f us); "
-            "plain %.4f ms (stats %.4f ms), sdpa backward %.4f ms [%s]"
+            "forward lse %.3g, delta %.3g; delta %.4f ms (device %.4f ms, "
+            "bound %.2f us, plain %.4f ms), dq %.4f ms, dkdv %.4f ms, all "
+            "three %.4f ms (device %.4f ms; bound %.2f us, %s; dq %.2f us, "
+            "dkdv %.2f us); plain %.4f ms, sdpa backward %.4f ms (device "
+            "%.4f ms) [%s]"
             % (kernel, b, h, s, sk, d, case[5],
-               "causal" if causal else "full", what, err, margin, stats_err,
-               stage_ms["bwd_stats"], stage_ms[dq_name], stage_ms[dkdv_name],
-               stage_ms["all"], bounds["all"][0] * 1e3, bounds["all"][1],
+               "causal" if causal else "full", what, err, margin, lse_err,
+               delta_err, stage_ms[delta_name], dev_ms["bwd_delta"],
+               bounds[delta_name][0] * 1e3, plain_delta_ms,
+               stage_ms[dq_name], stage_ms[dkdv_name], stage_ms["all"],
+               dev_ms["all"], bounds["all"][0] * 1e3, bounds["all"][1],
                bounds[dq_name][0] * 1e3, bounds[dkdv_name][0] * 1e3,
-               plain_ms, plain_stats_ms, library_ms, gpu))
+               plain_ms, library_ms, dev_ms["library"], gpu))
         if by_name:
             log("kernel flash_bwd ffma by name, same inputs (%s): dq/dk/dv "
                 "max_abs_err %.3g (worst excess %.3g of the atol); dq %.4f "
@@ -582,7 +696,7 @@ def bwd_phase(gpu):
                 % (what, ffma_err, ffma_margin, stage_ms["bwd_dq"],
                    stage_ms["bwd_dkdv"], stage_ms["all_ffma"], gpu))
         rows.append(row)
-        del q, k, v, g, out, got, want
+        del q, k, v, g, out, lse, delta, got, want
     del flush
     return rows
 
@@ -1020,7 +1134,7 @@ def train_phase(gpu):
         launches = dict(fa.flash_attention.kernel_launches)
         steps = len(stats["losses"])
         path = "train_%s%s" % (kind, "" if flash else "_dense")
-        # bf16 at head_dim 64: bwd_stats, then the sm90 dq and dk/dv
+        # bf16 at head_dim 64: bwd_delta, then the sm90 dq and dk/dv
         want = (only("sm90", 2 * layers * steps,
                      **{k: layers * steps
                         for k in fa.bwd_kernel_names("sm90")})
@@ -1356,16 +1470,19 @@ def main():
             "launches": sum(launches.values()),
             "launches_by_path": launches,
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+            "lse_ms": row["lse_ms"], "lse_max_abs_err": row["lse_max_abs_err"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "bound_rate": row["bound_rate"],
             "library_ms": row["library_ms"], "ffma_ms": row["ffma_ms"],
             "device_ms": row["device_ms"],
+            "lse_device_ms": row["lse_device_ms"],
             "shapes": [r for r in kernel_rows if r["kernel"] == name],
         })
     # the backward's kernels at the GPT-2s training shape (the FFMA dq and
-    # dk/dv by name there); "plain" is flash_bwd_reference (the whole
-    # backward; pass 1 alone for the stats kernel), "library" SDPA's whole
-    # backward
+    # dk/dv by name there); "plain" is flash_bwd_reference given the
+    # forward's lse (the whole backward; the plain delta for bwd_delta),
+    # "library" SDPA's whole backward, none for bwd_delta: no one PyTorch
+    # call sums bf16 products into f32 rows
     train = {r["what"]: r for r in bwd_rows if r["what"].endswith("train")}
     gpt2s = train["gpt2s train"]
     for name in fa.BWD_KERNELS + fa.BWD_SM90_KERNELS:
@@ -1380,23 +1497,31 @@ def main():
                              "backward, not Pallas",
             "launches": sum(launches.values()),
             "launches_by_path": launches,
-            "max_abs_err": (gpt2s["stats_max_abs_err"]
-                            if name == "bwd_stats" else
+            "max_abs_err": (gpt2s["delta_max_abs_err"]
+                            if name == "bwd_delta" else
                             gpt2s["max_abs_err"] if sm90 else
                             gpt2s["ffma_max_abs_err"]),
             "ms": gpt2s["ms"][name],
             "bert_ms": train["bert-base train"]["ms"][name],
-            "plain_ms": (gpt2s["plain_stats_ms"] if name == "bwd_stats"
+            **({"device_ms": gpt2s["device_ms"]["bwd_delta"],
+                "bert_device_ms":
+                    train["bert-base train"]["device_ms"]["bwd_delta"]}
+               if name == "bwd_delta" else {}),
+            "plain_ms": (gpt2s["plain_delta_ms"] if name == "bwd_delta"
                          else gpt2s["plain_ms"]),
             "bound_ms": gpt2s["bound_ms"][name],
             "bound_by": gpt2s["bound_by"][name],
-            "library_ms": gpt2s["library_ms"],
+            "library_ms": (None if name == "bwd_delta"
+                           else gpt2s["library_ms"]),
+            "backward_library_ms": gpt2s["library_ms"],
             "backward_ms": gpt2s["ms"]["all"],
+            "backward_device_ms": gpt2s["device_ms"]["all"],
+            "backward_library_device_ms": gpt2s["device_ms"]["library"],
             "backward_ffma_ms": gpt2s["ms"]["all_ffma"],
             "backward_bound_ms": gpt2s["bound_ms"]["all"],
             # every case of the backward, once
-            **({"shapes": bwd_rows} if name == "bwd_stats" else
-               {"shapes_in": "flash_bwd_stats"}),
+            **({"shapes": bwd_rows} if name == "bwd_delta" else
+               {"shapes_in": "flash_bwd_delta"}),
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(gpu, flush=True)

@@ -1,25 +1,31 @@
 // Flash-attention backward for Hopper (sm_90a): dq, dk, dv of
-// O = softmax(mask(q*scale . k^T)) . v, by recompute, in three kernels.
+// O = softmax(mask(q*scale . k^T)) . v, by recompute, from the lse that the
+// forward kernel saved, in three kernels.
 //
 // Replaces the JAX package's backward, edl_tpu/ops/flash_attention.py
 // _flash_bwd (a custom_vjp over two lax.scan passes; XLA, not Pallas). Its
 // pass 1 recomputes each q row's softmax statistics (m, l) over the kv
 // blocks and takes delta = rowsum(g * out); its pass 2 walks the kv blocks
-// once more, carrying dq and emitting each block's dk and dv. On the card
-// thread blocks run in parallel and in no order, so the carry becomes a loop
-// inside a block, and the two outputs that pass 2 reduces over different
-// axes get a kernel each, in FlashAttention-2's order (no atomics):
+// once more, carrying dq and emitting each block's dk and dv. Here the
+// statistics are not recomputed: every forward kernel (flash_fwd_sm90.cu,
+// flash_fwd_tf32x3.cu, flash_fwd.cu) writes lse = m + log(max(l, 1e-30))
+// beside O when the autograd function asks for it, the same function of q
+// and k as pass 1's (m, l), so what is left of pass 1 is delta. On the card
+// thread blocks run in parallel and in no order, so pass 2's carry becomes
+// a loop inside a block, and the two outputs that pass 2 reduces over
+// different axes get a kernel each, in FlashAttention-2's order (no
+// atomics):
 //
-//   edl_flash_bwd_stats  one block per (bh, q tile): lse = m + log(max(l,
-//                        1e-30)) over the masked scores, delta = rowsum(g*o);
+//   edl_flash_bwd_delta  TPR adjacent lanes per q row: delta = rowsum(g*o);
 //   edl_flash_bwd_dq     one block per (bh, q tile), looping over kv tiles:
 //                        dq = sm_scale * sum_j ds_ij k_j;
 //   edl_flash_bwd_dkdv   one block per (bh, kv tile), looping over q tiles:
 //                        dv = p^T g, dk = ds^T (q * sm_scale);
 //
 // with p = exp(s - lse) (0 where masked), dp = g . v^T, ds = p * (dp -
-// delta). The stats pass is kept so that the forward kernels stay as they
-// are; a forward that saves its lse would make it unnecessary.
+// delta). For bf16 at head_dim 64 and 128, flash_bwd_sm90.cu's tensor-core
+// dq and dk/dv run after bwd_delta in place of this file's
+// (ops/flash_attention.py:bwd_kernel_for decides).
 //
 // Layout: q, o, g, dq are [bh, s, d]; k, v, dk, dv are [bh, sk, d]; lse and
 // delta are f32 [bh, s]. Contiguous, 16-byte aligned; bf16 or f32 (the
@@ -27,10 +33,10 @@
 //
 // Semantics kept from the reference: every product is f32 on f32 upcasts,
 // sm_scale multiplies q after the upcast, masked scores are -1e30 and their
-// probabilities 0, l is clamped at 1e-30. The causal diagonal is anchored
-// at position 0 (q row i sees keys 0..i) when sk != s, keys at or past sk
-// are masked and read as zeros (never past sk), and kv rows that no query
-// reaches (causal with s < sk) get zero dk and dv, written.
+// probabilities 0. The causal diagonal is anchored at position 0 (q row i
+// sees keys 0..i) when sk != s, keys at or past sk are masked and read as
+// zeros (never past sk), and kv rows that no query reaches (causal with
+// s < sk) get zero dk and dv, written.
 //
 // What bounds it. The backward's five products (s, dp, dv, dq, dk) cost
 // 10 * d flops per (query, key) pair; at GPT-2 small's training shape (b*h
@@ -38,19 +44,26 @@
 // the card's 989 TFLOP/s bf16 rate, against 101 MB moved (q, k, v, o, g
 // read once, dq, dk, dv written once), 30 us at 3.35 TB/s: operations
 // bound, narrowly.
-// This first design keeps the reference's f32 arithmetic on the CUDA cores
-// (67 TFLOP/s), and the recompute adds three products (s and dp are taken
-// in both the dq and the dk/dv kernel, s once more in the stats kernel:
-// eight in all), so it runs far from that bound; the tensor cores are
-// later work. What it does about
-// the CUDA cores' rate: every product is a 256-thread register tile of 4
-// adjacent columns by TM rows per thread, both operands read from shared
-// memory as float4 rows laid out k-major, so a thread does 4 * TM fused
-// multiply-adds per TM/4 + 1 shared loads; the operands are staged once per
-// tile in the layout each product reads (transposed where they are the
-// contracted side), the score tile is made in the orientation whose rows
-// are the next product's contracted axis so that p and ds are stored as
-// float4 rows, and the causal loops stop at the diagonal tile.
+// - bwd_delta does no product: it reads g and o once and writes delta,
+//   25.6 MB at that shape, 7.63 us at 3.35 TB/s, so bytes bound it, and it
+//   is designed for bandwidth. A row's TPR lanes (the power of two at or
+//   above the row's 16-byte chunks, at most 32) each read 16-byte vectors
+//   of g and o and sum their products in f32; shuffles within the row's
+//   lanes finish the sum and the row's first lane stores it. Consecutive
+//   rows lie in consecutive lanes, so a warp reads one contiguous run of
+//   each tensor. No shared memory, no tensor cores.
+// - dq and dk/dv keep the reference's f32 arithmetic on the CUDA cores
+//   (67 TFLOP/s), and the recompute adds two products (s and dp are taken
+//   in both: seven in all), so they run far from that bound; the tensor
+//   cores are flash_bwd_sm90.cu's. What they do about the CUDA cores'
+//   rate: every product is a 256-thread register tile of 4 adjacent
+//   columns by TM rows per thread, both operands read from shared memory
+//   as float4 rows laid out k-major, so a thread does 4 * TM fused
+//   multiply-adds per TM/4 + 1 shared loads; the operands are staged once
+//   per tile in the layout each product reads (transposed where they are
+//   the contracted side), the score tile is made in the orientation whose
+//   rows are the next product's contracted axis so that p and ds are
+//   stored as float4 rows, and the causal loops stop at the diagonal tile.
 //
 // Tiles: B = 64 rows of q and of kv at d <= 64, B = 32 above (shared memory:
 // the dk/dv kernel holds k and v transposed, q and g both ways, p and ds:
@@ -102,15 +115,7 @@ __device__ __forceinline__ void store1(__nv_bfloat16* dst, float x) {
   *dst = __float2bfloat16(x);
 }
 
-// max / sum over the W adjacent lanes that share a row (W a power of 2)
-template <int W>
-__device__ __forceinline__ float group_max(float x) {
-#pragma unroll
-  for (int off = W / 2; off > 0; off >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
-
+// sum over the W adjacent lanes that share a row (W a power of 2)
 template <int W>
 __device__ __forceinline__ float group_sum(float x) {
 #pragma unroll
@@ -197,94 +202,32 @@ __device__ __forceinline__ void load_rows(const T* __restrict__ src, int r0,
   }
 }
 
-// lse and delta of q rows [q0, q0 + B) of one (b, h).
-template <typename T, int DMAX>
+// delta = rowsum(g * o) of NT / TPR q rows of one (b, h): TPR adjacent lanes
+// per row, lane ``part`` summing the row's 16-byte chunks part, part + TPR,
+// ...
+template <typename T, int TPR>
 __global__ void __launch_bounds__(NT)
-bwd_stats_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ o, const T* __restrict__ g,
-                 float* __restrict__ lse, float* __restrict__ delta, int s,
-                 int sk, int d, float sm_scale, int causal) {
-  constexpr int B = Tile<DMAX>::B;
-  using GS = Geo<B, B>;   // the score tile: rows q, columns keys
-  constexpr int TM = GS::TM;
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  float* qt = smem;             // [DMAX][B] q * sm_scale, transposed
-  float* kt = qt + DMAX * B;    // [DMAX][B] k, transposed
-
-  const int q0 = blockIdx.x * B;
+bwd_delta_kernel(const T* __restrict__ o, const T* __restrict__ g,
+                 float* __restrict__ delta, int s, int d) {
+  constexpr int EV = 16 / sizeof(T);   // elements per 16-byte load
+  const int chunks = d / EV;           // a row's 16-byte vectors
+  const int row = blockIdx.x * (NT / TPR) + threadIdx.x / TPR;
+  const int part = threadIdx.x % TPR;
   const size_t bh = blockIdx.y;
-  q += bh * s * d;
-  o += bh * s * d;
-  g += bh * s * d;
-  k += bh * sk * d;
-  lse += bh * s;
-  delta += bh * s;
-  const int tid = threadIdx.x;
-
-  {  // delta = rowsum(g * o): NT / B adjacent lanes per row
-    constexpr int TPR = NT / B;
-    constexpr int EV = 16 / sizeof(T);
-    const int r = tid / TPR, part = tid % TPR;
-    float sum = 0.f;
-    if (q0 + r < s) {
-      for (int c = part * EV; c < d; c += TPR * EV) {
-        float gv[EV], ov[EV];
-        load16(g + (size_t)(q0 + r) * d + c, gv);
-        load16(o + (size_t)(q0 + r) * d + c, ov);
+  float sum = 0.f;
+  if (row < s) {
+    const T* gr = g + (bh * s + row) * d;
+    const T* orow = o + (bh * s + row) * d;
+    for (int c = part; c < chunks; c += TPR) {
+      float gv[EV], ov[EV];
+      load16(gr + c * EV, gv);
+      load16(orow + c * EV, ov);
 #pragma unroll
-        for (int e = 0; e < EV; ++e) sum = fmaf(gv[e], ov[e], sum);
-      }
-    }
-    sum = group_sum<TPR>(sum);
-    if (part == 0 && q0 + r < s) delta[q0 + r] = sum;
-  }
-
-  load_rows<B, true, false>(q, q0, s, d, sm_scale, qt, nullptr, 0);
-  const int tx = tid % GS::TX, ty = tid / GS::TX;
-  const int m0 = ty * TM, n0 = tx * 4;
-  float m[TM], l[TM];
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
-  }
-  int n_tiles = (sk + B - 1) / B;
-  if (causal) n_tiles = min(n_tiles, (q0 + B - 1) / B + 1);
-  for (int t = 0; t < n_tiles; ++t) {
-    const int k0 = t * B;
-    __syncthreads();   // q is staged; the last tile's reads of kt are done
-    load_rows<B, true, false>(k, k0, sk, d, 1.f, kt, nullptr, 0);
-    __syncthreads();
-    float sc[TM][4];
-    zero(sc);
-    mm<TM>(qt, B, kt, B, d, m0, n0, sc);
-#pragma unroll
-    for (int i = 0; i < TM; ++i) {
-      const int qp = q0 + m0 + i;
-      bool ok[4];
-      float row_max = kNegInf;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kp = k0 + n0 + j;
-        ok[j] = kp < sk && (!causal || qp >= kp);
-        if (!ok[j]) sc[i][j] = kNegInf;
-        row_max = fmaxf(row_max, sc[i][j]);
-      }
-      const float m_new = fmaxf(m[i], group_max<GS::TX>(row_max));
-      float row_sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        row_sum += ok[j] ? expf(sc[i][j] - m_new) : 0.f;
-      l[i] = l[i] * expf(m[i] - m_new) + group_sum<GS::TX>(row_sum);
-      m[i] = m_new;
+      for (int e = 0; e < EV; ++e) sum = fmaf(gv[e], ov[e], sum);
     }
   }
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int qp = q0 + m0 + i;
-    if (tx == 0 && qp < s) lse[qp] = m[i] + logf(fmaxf(l[i], 1e-30f));
-  }
+  sum = group_sum<TPR>(sum);   // every lane takes part: rows past s add 0
+  if (part == 0 && row < s) delta[bh * s + row] = sum;
 }
 
 // dq of q rows [q0, q0 + B) of one (b, h), over the kv tiles they see.
@@ -481,11 +424,6 @@ bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 template <int DMAX>
-constexpr size_t stats_smem() {
-  return sizeof(float) * 2 * DMAX * Tile<DMAX>::B;
-}
-
-template <int DMAX>
 constexpr size_t dq_smem() {
   constexpr int B = Tile<DMAX>::B;
   return sizeof(float) *
@@ -515,7 +453,7 @@ cudaError_t prepare(Kernel kernel, size_t bytes) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
-enum Which { kStats = 0, kDq = 1, kDkdv = 2 };
+enum Which { kDq, kDkdv };
 
 template <typename T, int DMAX>
 cudaError_t launch(Which which, const Args& a) {
@@ -525,15 +463,7 @@ cudaError_t launch(Which which, const Args& a) {
   const T* v = static_cast<const T*>(a.v);
   const T* g = static_cast<const T*>(a.g);
   cudaError_t err;
-  if (which == kStats) {
-    const size_t bytes = stats_smem<DMAX>();
-    if ((err = prepare(bwd_stats_kernel<T, DMAX>, bytes)) != cudaSuccess)
-      return err;
-    const dim3 grid((a.s + B - 1) / B, a.bh);
-    bwd_stats_kernel<T, DMAX><<<grid, NT, bytes, a.stream>>>(
-        q, k, static_cast<const T*>(a.o), g, a.lse, a.delta, a.s, a.sk, a.d,
-        a.sm_scale, a.causal);
-  } else if (which == kDq) {
+  if (which == kDq) {
     const size_t bytes = dq_smem<DMAX>();
     if ((err = prepare(bwd_dq_kernel<T, DMAX>, bytes)) != cudaSuccess)
       return err;
@@ -560,29 +490,55 @@ cudaError_t dispatch_d(Which which, const Args& a) {
   return launch<T, 256>(which, a);
 }
 
+bool valid(const Args& a) {
+  return a.bh > 0 && a.s > 0 && a.sk > 0 && a.d > 0 && a.d <= 256 &&
+         a.d % 8 == 0 && a.bh <= 65535;
+}
+
 int run(Which which, const Args& a, int dtype) {
-  if (a.bh <= 0 || a.s <= 0 || a.sk <= 0 || a.d <= 0 || a.d > 256 ||
-      a.d % 8 != 0 || a.bh > 65535)
-    return (int)cudaErrorInvalidValue;
+  if (!valid(a)) return (int)cudaErrorInvalidValue;
   if (dtype == 0) return (int)dispatch_d<float>(which, a);
   if (dtype == 1) return (int)dispatch_d<__nv_bfloat16>(which, a);
   return (int)cudaErrorInvalidValue;
 }
 
+template <typename T, int TPR>
+cudaError_t launch_delta(const Args& a) {
+  const dim3 grid((a.s + NT / TPR - 1) / (NT / TPR), a.bh);
+  bwd_delta_kernel<T, TPR><<<grid, NT, 0, a.stream>>>(
+      static_cast<const T*>(a.o), static_cast<const T*>(a.g), a.delta, a.s,
+      a.d);
+  return cudaGetLastError();
+}
+
+// TPR: the power of two at or above the row's 16-byte chunks, at most 32
+template <typename T>
+cudaError_t dispatch_delta(const Args& a) {
+  const int chunks = a.d / (16 / (int)sizeof(T));
+  if (chunks <= 1) return launch_delta<T, 1>(a);
+  if (chunks <= 2) return launch_delta<T, 2>(a);
+  if (chunks <= 4) return launch_delta<T, 4>(a);
+  if (chunks <= 8) return launch_delta<T, 8>(a);
+  if (chunks <= 16) return launch_delta<T, 16>(a);
+  return launch_delta<T, 32>(a);
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. The caller has checked shapes, types,
-// contiguity, alignment, d % 8 == 0 and d <= 256, and allocated lse and
-// delta (f32 [bh, s]) and the gradients. Each returns cudaGetLastError()
-// after its launch (0 = success); none allocates or synchronises.
-extern "C" int edl_flash_bwd_stats(const void* q, const void* k,
-                                   const void* o, const void* g, float* lse,
-                                   float* delta, int bh, int s, int sk, int d,
-                                   float sm_scale, int causal, int dtype,
+// contiguity, alignment, d % 8 == 0 and d <= 256, and allocated delta (f32
+// [bh, s]) and the gradients; lse (f32 [bh, s]) is the forward's. Each
+// returns cudaGetLastError() after its launch (0 = success); none allocates
+// or synchronises.
+extern "C" int edl_flash_bwd_delta(const void* o, const void* g, float* delta,
+                                   int bh, int s, int d, int dtype,
                                    void* stream) {
-  Args a{q, k, nullptr, o, g, lse, delta, nullptr, nullptr, nullptr,
-         bh, s, sk, d, sm_scale, causal, static_cast<cudaStream_t>(stream)};
-  return run(kStats, a, dtype);
+  Args a{nullptr, nullptr, nullptr, o, g, nullptr, delta, nullptr, nullptr,
+         nullptr, bh, s, 1, d, 0.f, 0, static_cast<cudaStream_t>(stream)};
+  if (!valid(a)) return (int)cudaErrorInvalidValue;
+  if (dtype == 0) return (int)dispatch_delta<float>(a);
+  if (dtype == 1) return (int)dispatch_delta<__nv_bfloat16>(a);
+  return (int)cudaErrorInvalidValue;
 }
 
 extern "C" int edl_flash_bwd_dq(const void* q, const void* k, const void* v,

@@ -6,9 +6,10 @@
 // csrc/flash_bwd.cu (f32 FFMA), themselves the port of the JAX package's
 // backward, edl_tpu/ops/flash_attention.py _flash_bwd (:254, a custom_vjp
 // over two lax.scan passes; XLA, not Pallas). It computes what _flash_bwd's
-// pass 2 computes, from the lse and delta = rowsum(g * out) that
-// flash_bwd.cu's bwd_stats kernel (pass 1) leaves, with FlashAttention-2's
-// split of pass 2 into two kernels, no atomics:
+// pass 2 computes, from the lse that the forward kernel wrote
+// (flash_fwd_sm90.cu; the softmax statistics that _flash_bwd's pass 1
+// recomputes) and delta = rowsum(g * out) from flash_bwd.cu's bwd_delta,
+// with FlashAttention-2's split of pass 2 into two kernels, no atomics:
 //
 //   edl_flash_bwd_dq_sm90    one warpgroup per (bh, 64-row q tile), over kv
 //                            tiles: dq = sm_scale * sum_j ds_ij k_j;
@@ -71,9 +72,8 @@
 // waits, and runs the products and the exp/mask pass in turn, so the
 // tensor cores idle during the exp pass; a __syncthreads ends every tile
 // before its slot is refilled; each output leaves from registers with
-// 4-byte stores. Producer and consumer warpgroups (warp specialisation),
-// two consumer warpgroups per block, and an lse saved by the forward (so
-// bwd_stats goes) are the next steps.
+// 4-byte stores. Producer and consumer warpgroups (warp specialisation)
+// and two consumer warpgroups per block are the next steps.
 //
 // Registers (ptxas -v, sm_90a, nvcc 12.9), none spilled: dq 128 at d = 64
 // and 168 at d = 128; dk/dv, which holds four 64 x d accumulators (S^T,
@@ -478,10 +478,10 @@ int run(bool dkdv, const Args& a, int d) {
 }  // namespace
 
 // The caller has checked shapes, bf16, contiguity, 16-byte alignment and
-// d in {64, 128}, and allocated lse and delta (f32 [bh, s], from bwd_stats) and the
-// gradients. Each returns 0 on success, else a CUDA error (after the
-// launch, cudaGetLastError()) or one of hopper.cuh's tensor-map codes;
-// neither allocates or synchronises.
+// d in {64, 128}, and allocated lse and delta (f32 [bh, s]: the forward's
+// lse, bwd_delta's delta) and the gradients. Each returns 0 on success,
+// else a CUDA error (after the launch, cudaGetLastError()) or one of
+// hopper.cuh's tensor-map codes; neither allocates or synchronises.
 extern "C" int edl_flash_bwd_dq_sm90(const void* q, const void* k,
                                      const void* v, const void* g,
                                      const float* lse, const float* delta,

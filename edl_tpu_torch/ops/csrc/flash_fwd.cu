@@ -11,6 +11,9 @@
 //
 // Layout: q, o are [bh, s, d]; k, v are [bh, sk, d]; contiguous, 16-byte
 // aligned; bf16 or f32 (o has q's type). d is a multiple of 8, at most 256.
+// lse, when not NULL, is f32 [bh, s]: each row's m + log(max(l, 1e-30)) over
+// the scaled, masked scores, for the backward (csrc/flash_bwd.cu). Rows at
+// or past s are not written.
 //
 // Semantics kept from the TPU kernel: inputs are upcast to f32 before every
 // product, sm_scale multiplies q after the upcast, scores and the online
@@ -95,8 +98,9 @@ __host__ __device__ __forceinline__ size_t smem_floats(int d) {
 template <typename T, int DMAX>
 __global__ void __launch_bounds__(NT)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, int s, int sk,
-                 int d, float sm_scale, int causal) {
+                 const T* __restrict__ v, T* __restrict__ o,
+                 float* __restrict__ lse, int s, int sk, int d,
+                 float sm_scale, int causal) {
   extern __shared__ float smem[];
   const int ld = d + 1;
   float* qs = smem;               // [BM][ld], q * sm_scale in f32
@@ -237,6 +241,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int qp = q0 + ty + 16 * i;
     if (qp >= s) continue;
     const float denom = fmaxf(l[i], 1e-30f);
+    // the half-warp's 16 lanes hold the row's m and l: one stores them
+    if (lse != nullptr && tx == 0) lse[bh * s + qp] = m[i] + logf(denom);
 #pragma unroll
     for (int j = 0; j < OJ; ++j) {
       const int c = tx + 16 * j;
@@ -247,8 +253,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int DMAX>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int bh, int s, int sk, int d, float sm_scale, int causal,
-                   cudaStream_t stream) {
+                   float* lse, int bh, int s, int sk, int d, float sm_scale,
+                   int causal, cudaStream_t stream) {
   const size_t bytes = smem_floats(d) * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_kernel<T, DMAX>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -257,41 +263,45 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   const dim3 grid((s + BM - 1) / BM, bh);
   flash_fwd_kernel<T, DMAX><<<grid, NT, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), s, sk, d, sm_scale,
+      static_cast<const T*>(v), static_cast<T*>(o), lse, s, sk, d, sm_scale,
       causal);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t dispatch_d(const void* q, const void* k, const void* v, void* o,
-                       int bh, int s, int sk, int d, float sm_scale,
-                       int causal, cudaStream_t stream) {
+                       float* lse, int bh, int s, int sk, int d,
+                       float sm_scale, int causal, cudaStream_t stream) {
   if (d <= 64)
-    return launch<T, 64>(q, k, v, o, bh, s, sk, d, sm_scale, causal, stream);
+    return launch<T, 64>(q, k, v, o, lse, bh, s, sk, d, sm_scale, causal,
+                         stream);
   if (d <= 128)
-    return launch<T, 128>(q, k, v, o, bh, s, sk, d, sm_scale, causal, stream);
-  return launch<T, 256>(q, k, v, o, bh, s, sk, d, sm_scale, causal, stream);
+    return launch<T, 128>(q, k, v, o, lse, bh, s, sk, d, sm_scale, causal,
+                          stream);
+  return launch<T, 256>(q, k, v, o, lse, bh, s, sk, d, sm_scale, causal,
+                        stream);
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. The caller has checked shapes, types,
-// contiguity, alignment, d % 8 == 0 and d <= 256. Returns cudaGetLastError()
-// after the launch (0 = success); allocates nothing and does not synchronise.
+// contiguity, alignment, d % 8 == 0 and d <= 256, and allocated lse (f32
+// [bh, s]) or passes NULL for none. Returns cudaGetLastError() after the
+// launch (0 = success); allocates nothing and does not synchronise.
 extern "C" int edl_flash_fwd(const void* q, const void* k, const void* v,
-                             void* o, int bh, int s, int sk, int d,
-                             float sm_scale, int causal, int dtype,
+                             void* o, float* lse, int bh, int s, int sk,
+                             int d, float sm_scale, int causal, int dtype,
                              void* stream) {
   if (bh <= 0 || s <= 0 || sk <= 0 || d <= 0 || d > 256 || d % 8 != 0 ||
       bh > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return (int)dispatch_d<float>(q, k, v, o, bh, s, sk, d, sm_scale, causal,
-                                  st);
+    return (int)dispatch_d<float>(q, k, v, o, lse, bh, s, sk, d, sm_scale,
+                                  causal, st);
   if (dtype == 1)
-    return (int)dispatch_d<__nv_bfloat16>(q, k, v, o, bh, s, sk, d, sm_scale,
-                                          causal, st);
+    return (int)dispatch_d<__nv_bfloat16>(q, k, v, o, lse, bh, s, sk, d,
+                                          sm_scale, causal, st);
   return (int)cudaErrorInvalidValue;
 }
 

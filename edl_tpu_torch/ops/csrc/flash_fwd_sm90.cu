@@ -11,7 +11,10 @@
 // ops/flash_attention.py picks one of the three before launch (kernel_for).
 //
 // Layout: q, o are [bh, s, d]; k, v are [bh, sk, d]; contiguous bf16,
-// 16-byte aligned; d is 64 or 128.
+// 16-byte aligned; d is 64 or 128. lse, when not NULL, is f32 [bh, s]: each
+// row's m + log(max(l, 1e-30)) over the scaled, masked scores, the
+// statistics the backward (csrc/flash_bwd_sm90.cu, csrc/flash_bwd.cu)
+// takes p = exp(s * scale - lse) from. Rows at or past s are not written.
 //
 // Design. One warpgroup (128 threads) per (b*h, 64-row q tile):
 // - TMA copies q once and K/V 64-row tiles into a ring of STAGES slots in
@@ -90,8 +93,9 @@ __global__ void __launch_bounds__(NT)
 flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
                       const __grid_constant__ CUtensorMap kmap,
                       const __grid_constant__ CUtensorMap vmap,
-                      __nv_bfloat16* __restrict__ o, int s, int sk,
-                      float sm_scale, int causal) {
+                      __nv_bfloat16* __restrict__ o,
+                      float* __restrict__ lse, int s, int sk, float sm_scale,
+                      int causal) {
   constexpr uint32_t TILE = (D / HALF) * BOX_BYTES;  // one 64-row tile
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t bars[STAGES + 1];  // the ring's, then q's
@@ -235,6 +239,9 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
     const int qp = q0 + r0 + 8 * i;
     if (qp >= s) continue;
     const float denom = fmaxf(l[i], 1e-30f);
+    // the quad's four lanes hold the row's m and l: one stores them
+    if (lse != nullptr && (lane & 3) == 0)
+      lse[(size_t)bh * s + qp] = m[i] + logf(denom);
 #pragma unroll
     for (int j = 0; j < D / 8; ++j)
       *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)qp * D + 8 * j + c0) =
@@ -244,8 +251,9 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
 }
 
 template <int D, int STAGES>
-int launch(const void* q, const void* k, const void* v, void* o, int bh,
-           int s, int sk, float sm_scale, int causal, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int bh, int s, int sk, float sm_scale, int causal,
+           cudaStream_t stream) {
   CUtensorMap qmap, kmap, vmap;
   const CUtensorMapDataType bf16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
   int err = tensor_map(&qmap, bf16, 2, q, bh, s, D);
@@ -260,27 +268,29 @@ int launch(const void* q, const void* k, const void* v, void* o, int bh,
   if (attr != cudaSuccess) return (int)attr;
   const dim3 grid(bh, (s + BM - 1) / BM);
   flash_fwd_sm90_kernel<D, STAGES><<<grid, NT, bytes, stream>>>(
-      qmap, kmap, vmap, static_cast<__nv_bfloat16*>(o), s, sk, sm_scale,
-      causal);
+      qmap, kmap, vmap, static_cast<__nv_bfloat16*>(o), lse, s, sk,
+      sm_scale, causal);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // The caller has checked shapes, bf16, contiguity, 16-byte alignment and
-// d in {64, 128}. Returns 0 on success, else a CUDA error (after the launch,
+// d in {64, 128}, and allocated lse (f32 [bh, s]) or passes NULL for none.
+// Returns 0 on success, else a CUDA error (after the launch,
 // cudaGetLastError()) or one of hopper.cuh's tensor-map codes; allocates
 // nothing and does not synchronise.
 extern "C" int edl_flash_fwd_sm90(const void* q, const void* k, const void* v,
-                                  void* o, int bh, int s, int sk, int d,
-                                  float sm_scale, int causal, void* stream) {
+                                  void* o, float* lse, int bh, int s, int sk,
+                                  int d, float sm_scale, int causal,
+                                  void* stream) {
   if (bh <= 0 || s <= 0 || sk <= 0 || (s + BM - 1) / BM > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (d == 64)
-    return launch<64, 3>(q, k, v, o, bh, s, sk, sm_scale, causal, st);
+    return launch<64, 3>(q, k, v, o, lse, bh, s, sk, sm_scale, causal, st);
   if (d == 128)
-    return launch<128, 2>(q, k, v, o, bh, s, sk, sm_scale, causal, st);
+    return launch<128, 2>(q, k, v, o, lse, bh, s, sk, sm_scale, causal, st);
   return (int)cudaErrorInvalidValue;
 }
 

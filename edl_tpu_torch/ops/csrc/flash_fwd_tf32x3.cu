@@ -13,7 +13,9 @@
 // ops/flash_attention.py picks one of the three before launch (kernel_for).
 //
 // Layout: q, o are [bh, s, 64]; k, v are [bh, sk, 64]; contiguous f32,
-// 16-byte aligned.
+// 16-byte aligned. lse, when not NULL, is f32 [bh, s]: each row's m +
+// log(max(l, 1e-30)) over the scaled, masked scores, for the backward
+// (csrc/flash_bwd.cu). Rows at or past s are not written.
 //
 // TF32 by design. The tensor cores multiply TF32 (a 10-bit mantissa), which
 // alone keeps about 3 decimal digits and misses chip_smoke.py's f32 check
@@ -174,8 +176,8 @@ __global__ void __launch_bounds__(NT, 1)
 flash_fwd_tf32x3_kernel(const __grid_constant__ CUtensorMap qmap,
                         const __grid_constant__ CUtensorMap kmap,
                         const __grid_constant__ CUtensorMap vmap,
-                        float* __restrict__ o, int s, int sk, float sm_scale,
-                        int causal) {
+                        float* __restrict__ o, float* __restrict__ lse, int s,
+                        int sk, float sm_scale, int causal) {
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t bars[STAGES + 1];  // the ring's, then q's
   // swizzled boxes sit on 1024-byte boundaries: Q hi/lo, K hi/lo, V^T
@@ -390,6 +392,9 @@ flash_fwd_tf32x3_kernel(const __grid_constant__ CUtensorMap qmap,
     const int qp = q0 + r0 + 8 * i;
     if (qp >= s) continue;
     const float denom = fmaxf(l[i], 1e-30f);
+    // the quad's four lanes hold the row's m and l: one stores them
+    if (lse != nullptr && (lane & 3) == 0)
+      lse[(size_t)bh * s + qp] = m[i] + logf(denom);
 #pragma unroll
     for (int j = 0; j < D / 8; ++j)
       *reinterpret_cast<float2*>(ob + (size_t)qp * D + 8 * j + c0) =
@@ -401,13 +406,15 @@ flash_fwd_tf32x3_kernel(const __grid_constant__ CUtensorMap qmap,
 }  // namespace
 
 // The caller has checked shapes, f32, contiguity, 16-byte alignment and
-// d == 64. Returns 0 on success, else a CUDA error (after the launch,
-// cudaGetLastError()) or one of hopper.cuh's tensor-map codes; allocates
-// nothing and does not synchronise.
+// d == 64, and allocated lse (f32 [bh, s]) or passes NULL for none. Returns
+// 0 on success, else a CUDA error (after the launch, cudaGetLastError()) or
+// one of hopper.cuh's tensor-map codes; allocates nothing and does not
+// synchronise.
 extern "C" int edl_flash_fwd_tf32x3(const void* q, const void* k,
-                                    const void* v, void* o, int bh, int s,
-                                    int sk, int d, float sm_scale,
-                                    int causal, void* stream) {
+                                    const void* v, void* o, float* lse,
+                                    int bh, int s, int sk, int d,
+                                    float sm_scale, int causal,
+                                    void* stream) {
   if (bh <= 0 || s <= 0 || sk <= 0 || d != D || (s + BM - 1) / BM > 65535)
     return (int)cudaErrorInvalidValue;
   CUtensorMap qmap, kmap, vmap;
@@ -425,7 +432,8 @@ extern "C" int edl_flash_fwd_tf32x3(const void* q, const void* k,
   const dim3 grid(bh, (s + BM - 1) / BM);
   flash_fwd_tf32x3_kernel<<<grid, NT, bytes, static_cast<cudaStream_t>(
                                                 stream)>>>(
-      qmap, kmap, vmap, static_cast<float*>(o), s, sk, sm_scale, causal);
+      qmap, kmap, vmap, static_cast<float*>(o), lse, s, sk, sm_scale,
+      causal);
   return (int)cudaGetLastError();
 }
 

@@ -28,28 +28,34 @@ attention that never materializes the [seq, seq] score matrix:
 
 The gradient (:class:`FlashAttentionFunction`, a
 ``torch.autograd.Function`` in place of the JAX package's
-``custom_vjp``) saves q, k, v and the output, and recomputes:
+``custom_vjp``) saves q, k, v, the output and each q row's lse = m +
+log(max(l, 1e-30)) over the scaled, masked scores, which the forward
+kernel writes beside the output (the plain forward on the CPU returns
+it too). The backward does not recompute the softmax statistics, as the
+JAX package's ``_flash_bwd`` does in its pass 1; the function is the
+same. It runs:
 
 - on a CUDA tensor, three kernels in FlashAttention-2's order:
-  ``bwd_stats`` (each q row's lse over the masked scores, and delta =
-  rowsum(g * out)), then dq (one block per q tile, looping over kv
-  tiles) and dk/dv (one block per kv tile, looping over q tiles), by
-  the pair :func:`bwd_kernel_for` picks:
+  ``bwd_delta`` (``csrc/flash_bwd.cu``: delta = rowsum(g * out), a row
+  reduction), then dq (one block per q tile, looping over kv tiles)
+  and dk/dv (one block per kv tile, looping over q tiles), by the pair
+  :func:`bwd_kernel_for` picks:
   - ``sm90`` (``csrc/flash_bwd_sm90.cu``: ``bwd_dq_sm90``,
     ``bwd_dkdv_sm90``) for bf16 at head_dim 64 (the training path) and
     128: bf16 wgmma with f32 accumulators, tiles fed by TMA, P and dS
     split into bf16 hi and lo before the products that take them;
   - ``ffma`` (``csrc/flash_bwd.cu``: ``bwd_dq``, ``bwd_dkdv``) for the
-    rest: f32 FFMA on the CUDA cores. ``bwd_stats`` is always this
-    source's;
-- on a CPU tensor, :func:`flash_bwd_reference`, the port of the JAX
-  package's ``_flash_bwd`` step by step.
+    rest: f32 FFMA on the CUDA cores;
+- on a CPU tensor, :func:`flash_bwd_reference` given the forward's lse:
+  the port of the JAX package's ``_flash_bwd`` with pass 1 reduced to
+  delta.
 
 There is no fallback between any of them: a CUDA tensor launches the
 kernel :func:`kernel_for` names (or the backward's three, as
-:func:`bwd_kernel_for` names them) or raises.
+:func:`bwd_kernel_for` names them) or raises, and a CUDA backward
+without the forward's lse raises rather than recompute it.
 Under ``torch.inference_mode()`` or ``no_grad`` the forward builds no
-graph and saves nothing.
+graph, writes no lse and saves nothing.
 
 Layout: q, k, v are [batch, heads, seq, head_dim] (``mha`` takes the
 model code's [batch, seq, heads, head_dim]).
@@ -76,7 +82,7 @@ _SOURCE_BWD_SM90 = os.path.join(_CSRC, "flash_bwd_sm90.cu")
 SOURCES = {"sm90": _SOURCE_SM90, "tf32x3": _SOURCE_TF32X3, "ffma": _SOURCE}
 #: the backward's three FFMA kernels, all in _SOURCE_BWD, by launch-count
 #: name
-BWD_KERNELS = ("bwd_stats", "bwd_dq", "bwd_dkdv")
+BWD_KERNELS = ("bwd_delta", "bwd_dq", "bwd_dkdv")
 #: the bf16 wgmma dq and dk/dv kernels, in _SOURCE_BWD_SM90
 BWD_SM90_KERNELS = ("bwd_dq_sm90", "bwd_dkdv_sm90")
 #: each backward source, by the name bwd_kernel_for gives it
@@ -118,8 +124,8 @@ def kernel_for(dtype, head_dim):
 def bwd_kernel_for(dtype, head_dim):
     """The dq and dk/dv kernels a CUDA backward takes: ``"sm90"`` for
     bf16 at head_dim 64 or 128, ``"ffma"`` for everything else the
-    wrapper accepts. The one place that decides; ``bwd_stats`` is FFMA's
-    always."""
+    wrapper accepts. The one place that decides; ``bwd_delta`` runs
+    before either."""
     if dtype == torch.bfloat16 and head_dim in BWD_SM90_HEAD_DIMS:
         return "sm90"
     return "ffma"
@@ -127,16 +133,17 @@ def bwd_kernel_for(dtype, head_dim):
 
 def bwd_kernel_names(kernel):
     """The launch-count names of a backward by ``kernel`` (``"sm90"``
-    or ``"ffma"``): stats, dq, dk/dv."""
+    or ``"ffma"``): delta, dq, dk/dv."""
     sfx = "_sm90" if kernel == "sm90" else ""
-    return ("bwd_stats", "bwd_dq" + sfx, "bwd_dkdv" + sfx)
+    return ("bwd_delta", "bwd_dq" + sfx, "bwd_dkdv" + sfx)
 
 
 def bind(lib):
     """Declare flash_fwd.cu's C entry points' types on its library."""
     p = ctypes.c_void_p
+    # q k v o lse bh s sk d sm_scale causal dtype stream
     lib.edl_flash_fwd.argtypes = [
-        p, p, p, p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        p, p, p, p, p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int, p]
     lib.edl_flash_fwd.restype = ctypes.c_int
     lib.edl_flash_error_string.argtypes = [ctypes.c_int]
@@ -150,7 +157,8 @@ def _bind_wgmma(lib, kernel):
     the same types for both wgmma kernels)."""
     p = ctypes.c_void_p
     fn = getattr(lib, "edl_flash_fwd_" + kernel)
-    fn.argtypes = [p, p, p, p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+    # q k v o lse bh s sk d sm_scale causal stream
+    fn.argtypes = [p, p, p, p, p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                    ctypes.c_int, ctypes.c_float, ctypes.c_int, p]
     fn.restype = ctypes.c_int
     what = getattr(lib, "edl_flash_%s_error_string" % kernel)
@@ -175,10 +183,11 @@ def bind_bwd(lib):
     """Declare flash_bwd.cu's C entry points' types on its library."""
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     dims = [i, i, i, i, f, i, i, p]  # bh s sk d sm_scale causal dtype stream
-    lib.edl_flash_bwd_stats.argtypes = [p, p, p, p, p, p] + dims
+    # o g delta bh s d dtype stream
+    lib.edl_flash_bwd_delta.argtypes = [p, p, p, i, i, i, i, p]
     lib.edl_flash_bwd_dq.argtypes = [p, p, p, p, p, p, p] + dims
     lib.edl_flash_bwd_dkdv.argtypes = [p, p, p, p, p, p, p, p] + dims
-    for name in ("stats", "dq", "dkdv"):
+    for name in ("delta", "dq", "dkdv"):
         getattr(lib, "edl_flash_bwd_" + name).restype = ctypes.c_int
     lib.edl_flash_bwd_error_string.argtypes = [ctypes.c_int]
     lib.edl_flash_bwd_error_string.restype = ctypes.c_char_p
@@ -265,10 +274,13 @@ def _block_mask(ki, block_k, s, sk, causal, device):
     return mask
 
 
-def blockwise_reference(q, k, v, causal, sm_scale, block_k=512):
+def blockwise_reference(q, k, v, causal, sm_scale, block_k=512,
+                        return_lse=False):
     """The plain version of the kernel: O(seq)-memory attention by a loop
     over kv blocks with f32 online softmax — the port of the JAX
-    package's ``_blockwise_reference``."""
+    package's ``_blockwise_reference``. With ``return_lse``, (out, lse):
+    lse = m + log(max(l, 1e-30)), f32 [b, h, s], from the same loop, as
+    the kernels write it for the backward."""
     b, h, s, d = q.shape
     sk = k.shape[2]
     q32 = q.float() * sm_scale
@@ -288,7 +300,9 @@ def blockwise_reference(q, k, v, causal, sm_scale, block_k=512):
         acc = acc * corr[..., None] + torch.einsum("bhqk,bhkd->bhqd", p,
                                                    vb[ki])
         m = m_new
-    return (acc / torch.clamp_min(l, 1e-30)[..., None]).to(q.dtype)
+    l = torch.clamp_min(l, 1e-30)
+    out = (acc / l[..., None]).to(q.dtype)
+    return (out, m + torch.log(l)) if return_lse else out
 
 
 def _row_stats(q32, kb, n_blocks, block_k, s, sk, causal):
@@ -309,29 +323,36 @@ def _row_stats(q32, kb, n_blocks, block_k, s, sk, causal):
     return m, l
 
 
-def flash_bwd_reference(q, k, v, out, g, causal, sm_scale, block_k=512):
+def flash_bwd_reference(q, k, v, out, g, causal, sm_scale, block_k=512,
+                        lse=None):
     """The plain version of the backward kernels: the port of the JAX
     package's ``_flash_bwd``, step by step. Pass 1 recomputes the row
     statistics (m, l), l clamped at 1e-30, and delta = rowsum(g * out);
-    pass 2, per kv block: dv = p^T g, dp = g v^T, ds = p (dp - delta),
-    dq += sm_scale ds k, dk = ds^T (q sm_scale). Memory stays O(seq x
-    (d + block_k)). Returns (dq, dk, dv) in the inputs' dtype."""
+    given the forward's ``lse`` (f32 [b, h, s]) it takes p = exp(s - lse)
+    from it instead, as the kernels do, and pass 1 is delta alone. Pass
+    2, per kv block: dv = p^T g, dp = g v^T, ds = p (dp - delta), dq +=
+    sm_scale ds k, dk = ds^T (q sm_scale). Memory stays O(seq x (d +
+    block_k)). Returns (dq, dk, dv) in the inputs' dtype."""
     b, h, s, d = q.shape
     sk = k.shape[2]
     q32 = q.float() * sm_scale
     g32 = g.float()
     kb, vb, n_blocks = _block_layout(k, v, block_k)
-    m, l = _row_stats(q32, kb, n_blocks, block_k, s, sk, causal)
-    l = torch.clamp_min(l, 1e-30)
-    delta = (g32 * out.float()).sum(-1)
+    if lse is None:
+        m, l = _row_stats(q32, kb, n_blocks, block_k, s, sk, causal)
+        l = torch.clamp_min(l, 1e-30)
+        probs = lambda scores: (torch.exp(scores - m[..., None])
+                                / l[..., None])
+    else:
+        probs = lambda scores: torch.exp(scores - lse[..., None])
+    delta = flash_bwd_delta_reference(out, g)
     dq = torch.zeros((b, h, s, d), dtype=torch.float32, device=q.device)
     dks, dvs = [], []
     for ki in range(n_blocks):
         mask = _block_mask(ki, block_k, s, sk, causal, q.device)
         scores = torch.einsum("bhqd,bhkd->bhqk", q32, kb[ki])
         scores = torch.where(mask, scores, _NEG_INF)
-        p = torch.exp(scores - m[..., None]) / l[..., None]
-        p = torch.where(mask, p, 0.0)
+        p = torch.where(mask, probs(scores), 0.0)
         dvs.append(torch.einsum("bhqk,bhqd->bhkd", p, g32))
         dp = torch.einsum("bhqd,bhkd->bhqk", g32, vb[ki])
         ds = p * (dp - delta[..., None])
@@ -344,15 +365,22 @@ def flash_bwd_reference(q, k, v, out, g, causal, sm_scale, block_k=512):
 
 
 def flash_bwd_stats_reference(q, k, out, g, causal, sm_scale, block_k=512):
-    """The plain version of the ``bwd_stats`` kernel: (lse, delta), f32
-    [b, h, s], with lse = m + log(max(l, 1e-30)) from the backward's
-    pass 1 and delta = rowsum(g * out)."""
+    """The JAX backward's pass 1 alone: (lse, delta), f32 [b, h, s], with
+    lse = m + log(max(l, 1e-30)) from (m, l) recomputed over the masked
+    scores and delta = rowsum(g * out). The plain version that the
+    forward kernels' lse and ``bwd_delta`` are held against."""
     s, sk = q.shape[2], k.shape[2]
     kb, _, n_blocks = _block_layout(k, k, block_k)
     m, l = _row_stats(q.float() * sm_scale, kb, n_blocks, block_k, s, sk,
                       causal)
     return (m + torch.log(torch.clamp_min(l, 1e-30)),
-            (g.float() * out.float()).sum(-1))
+            flash_bwd_delta_reference(out, g))
+
+
+def flash_bwd_delta_reference(out, g):
+    """The plain version of the ``bwd_delta`` kernel: delta =
+    rowsum(g * out) in f32, [b, h, s]."""
+    return (g.float() * out.float()).sum(-1)
 
 
 def _check(q, k, v):
@@ -398,14 +426,29 @@ def _check_launch(q, k, tensors):
                              "%s is not" % name)
 
 
-def _launch(q, k, v, causal, sm_scale, kernel=None):
+def _check_lse(q, lse, what):
+    """Raise unless ``lse`` is f32 [b, h, s] of q [b, h, s, d], on q's
+    device (contiguity and alignment: :func:`_check_launch`)."""
+    if lse.dtype != torch.float32 or lse.shape != q.shape[:3] \
+            or lse.device != q.device:
+        raise ValueError("%s takes lse as float32 %s on %s, got %s %s on %s"
+                         % (what, tuple(q.shape[:3]), q.device, lse.dtype,
+                            tuple(lse.shape), lse.device))
+
+
+def _launch(q, k, v, causal, sm_scale, kernel=None, lse=None):
     """Launch a CUDA kernel on the current stream: ``kernel`` ("sm90",
     "tf32x3" or "ffma"), by default the one :func:`kernel_for` picks.
-    Raises on anything that kernel does not take, before any library
-    loads."""
+    Given ``lse`` (f32 [b, h, s]), the kernel also writes each q row's
+    m + log(max(l, 1e-30)) there, for the backward. Raises on anything
+    that kernel does not take, before any library loads."""
     b, h, s, d = q.shape
     sk = k.shape[2]
-    _check_launch(q, k, dict(q=q, k=k, v=v))
+    tensors = dict(q=q, k=k, v=v)
+    if lse is not None:
+        _check_lse(q, lse, "the flash forward")
+        tensors["lse"] = lse
+    _check_launch(q, k, tensors)
     kernel = kernel or kernel_for(q.dtype, d)
     if kernel in _TAKES and kernel_for(q.dtype, d) != kernel:
         raise ValueError("the %s flash kernel takes %s, got %s at %d"
@@ -415,7 +458,8 @@ def _launch(q, k, v, causal, sm_scale, kernel=None):
     lib = _kernel_lib(kernel)
     out = torch.empty_like(q)
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            b * h, s, sk, d, float(sm_scale), int(bool(causal)))
+            None if lse is None else lse.data_ptr(), b * h, s, sk, d,
+            float(sm_scale), int(bool(causal)))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         if kernel == "ffma":
@@ -484,18 +528,23 @@ def _bwd_kernel(q, k, tensors, kernel):
     return kernel
 
 
-def _bwd_stats(q, k, out, g, causal, sm_scale):
-    """The ``bwd_stats`` kernel: (lse, delta), f32 [b, h, s]."""
-    _check_launch(q, k, dict(q=q, k=k, out=out, g=g))
+def _bwd_delta(out, g):
+    """The ``bwd_delta`` kernel: delta = rowsum(g * out), f32 [b, h, s]."""
+    if out.shape != g.shape or out.dtype != g.dtype:
+        raise ValueError("bwd_delta takes out and g of one shape and dtype, "
+                         "got %s %s and %s %s" % (out.dtype, tuple(out.shape),
+                                                  g.dtype, tuple(g.shape)))
+    _check_launch(out, g, dict(out=out, g=g))
+    b, h, s, d = out.shape
     lib = _kernel_lib("bwd")
-    lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
-    delta = torch.empty_like(lse)
-    with torch.cuda.device(q.device):
-        _bwd_call("bwd_stats", lib.edl_flash_bwd_stats,
-                  lib.edl_flash_bwd_error_string, q.data_ptr(), k.data_ptr(),
-                  out.data_ptr(), g.data_ptr(), lse.data_ptr(),
-                  delta.data_ptr(), *_bwd_dims(q, k, causal, sm_scale))
-    return lse, delta
+    delta = torch.empty((b, h, s), dtype=torch.float32, device=out.device)
+    with torch.cuda.device(out.device):
+        _bwd_call("bwd_delta", lib.edl_flash_bwd_delta,
+                  lib.edl_flash_bwd_error_string, out.data_ptr(),
+                  g.data_ptr(), delta.data_ptr(), b * h, s, d,
+                  _DTYPES[out.dtype],
+                  torch.cuda.current_stream(out.device).cuda_stream)
+    return delta
 
 
 def _bwd_dq(q, k, v, g, lse, delta, causal, sm_scale, kernel=None):
@@ -528,57 +577,70 @@ def _bwd_dkdv(q, k, v, g, lse, delta, causal, sm_scale, kernel=None):
     return dk, dv
 
 
-def flash_bwd(q, k, v, out, g, causal, sm_scale, kernel=None):
-    """The backward on the card: (dq, dk, dv) in the inputs' dtype, by
-    ``bwd_stats`` and the dq and dk/dv kernels of ``kernel`` (default:
-    :func:`bwd_kernel_for`'s pick) on the current stream. Raises on what
-    they do not take (the forward kernels' domain; ``sm90`` only bf16 at
-    head_dim 64 or 128), before any library loads."""
+def flash_bwd(q, k, v, out, g, lse, causal, sm_scale, kernel=None):
+    """The backward on the card: (dq, dk, dv) in the inputs' dtype, from
+    the forward's ``lse`` (f32 [b, h, s]), by ``bwd_delta`` and the dq
+    and dk/dv kernels of ``kernel`` (default: :func:`bwd_kernel_for`'s
+    pick) on the current stream. Raises on what they do not take (the
+    forward kernels' domain; ``sm90`` only bf16 at head_dim 64 or 128)
+    and on a missing lse, before any library loads: nothing recomputes
+    the softmax statistics."""
     if q.dtype != g.dtype or out.dtype != q.dtype:
         raise TypeError("flash backward: q %s, out %s, g %s dtypes differ"
                         % (q.dtype, out.dtype, g.dtype))
-    tensors = dict(q=q, k=k, v=v, out=out, g=g)
+    if lse is None:
+        raise ValueError("flash backward: no lse from the forward (the CUDA "
+                         "backward does not recompute it)")
+    _check_lse(q, lse, "the flash backward")
+    tensors = dict(q=q, k=k, v=v, out=out, g=g, lse=lse)
     kernel = _bwd_kernel(q, k, tensors, kernel)
-    lse, delta = _bwd_stats(q, k, out, g, causal, sm_scale)
+    delta = _bwd_delta(out, g)
     dq = _bwd_dq(q, k, v, g, lse, delta, causal, sm_scale, kernel)
     dk, dv = _bwd_dkdv(q, k, v, g, lse, delta, causal, sm_scale, kernel)
     return dq, dk, dv
 
 
-def _forward(q, k, v, causal, sm_scale):
+def _forward(q, k, v, causal, sm_scale, with_lse=False):
+    """The output, or with ``with_lse`` (out, lse): the plain version on
+    the CPU, the kernel :func:`kernel_for` picks on CUDA."""
     if q.device.type == "cpu":
-        return blockwise_reference(q, k, v, causal, sm_scale)
+        return blockwise_reference(q, k, v, causal, sm_scale,
+                                   return_lse=with_lse)
     if q.device.type != "cuda":
         raise ValueError("flash_attention runs on cuda or cpu, not %s"
                          % q.device)
-    return _launch(q, k, v, causal, sm_scale)
+    if not with_lse:
+        return _launch(q, k, v, causal, sm_scale)
+    lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+    return _launch(q, k, v, causal, sm_scale, lse=lse), lse
 
 
 class FlashAttentionFunction(torch.autograd.Function):
     """:func:`flash_attention` with a gradient: the forward dispatches as
-    :func:`flash_attention` does and saves (q, k, v, out), as the JAX
-    package's ``_vjp_fwd``; the backward recomputes by
-    :func:`flash_bwd` on CUDA (the kernels :func:`bwd_kernel_for`
-    picks), :func:`flash_bwd_reference` on the CPU."""
+    :func:`flash_attention` does and saves (q, k, v, out) as the JAX
+    package's ``_vjp_fwd``, and the forward's lse beside them; the
+    backward takes p from that lse, by :func:`flash_bwd` on CUDA (the
+    kernels :func:`bwd_kernel_for` picks), :func:`flash_bwd_reference`
+    on the CPU."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, sm_scale):
-        out = _forward(q, k, v, causal, sm_scale)
-        ctx.save_for_backward(q, k, v, out)
+        out, lse = _forward(q, k, v, causal, sm_scale, with_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
         ctx.causal, ctx.sm_scale = causal, sm_scale
         return out
 
     @staticmethod
     def backward(ctx, g):
-        q, k, v, out = ctx.saved_tensors
+        q, k, v, out, lse = ctx.saved_tensors
         g = g.contiguous()
         if q.device.type == "cpu":
             grads = flash_bwd_reference(q, k, v, out, g, ctx.causal,
-                                        ctx.sm_scale)
+                                        ctx.sm_scale, lse=lse)
         else:
             if g.data_ptr() % 16:
                 g = g.clone()
-            grads = flash_bwd(q, k, v, out, g, ctx.causal, ctx.sm_scale)
+            grads = flash_bwd(q, k, v, out, g, lse, ctx.causal, ctx.sm_scale)
         return grads + (None, None)
 
 

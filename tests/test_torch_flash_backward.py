@@ -3,12 +3,16 @@ on the CPU.
 
 On CPU tensors the port's autograd function runs the plain backward
 (``flash_bwd_reference``, the port of ``_flash_bwd`` that
-``chip_smoke.py`` holds the CUDA backward kernels against on the card).
+``chip_smoke.py`` holds the CUDA backward kernels against on the card),
+given the lse that the plain forward returned, as the kernels take it
+from the forward kernel: nothing recomputes the softmax statistics.
 Inputs come from numpy with a seed. Tolerances: 1e-4 on gradients in
 f32, the JAX suite's (tests/test_flash_attention.py); 1e-5 against
 torch autograd through the port's own differentiable plain forward
 (both sides sum f32 products of the same blocks, in other orders).
 """
+
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -39,21 +43,39 @@ CASES = [(64, 64, True), (64, 64, False), (40, 96, True), (96, 40, True),
          (40, 96, False), (48, 80, True)]
 
 
-@pytest.mark.parametrize("s,sk,causal", CASES,
-                         ids=["s%dsk%d%s" % (s, sk, "c" if c else "f")
-                              for s, sk, c in CASES])
-def test_plain_backward_matches_jax_flash_bwd(s, sk, causal):
-    """s != sk anchors the causal diagonal at 0 (s < sk leaves kv rows
-    no query reaches: their dk, dv are 0); sk = 80 with 32-row blocks is
-    a ragged kv tail."""
+@functools.lru_cache(maxsize=None)
+def _jax_flash_bwd(s, sk, causal):
+    """JAX's forward output and ``_flash_bwd`` gradients at ``_inputs``'
+    shape (computed once for both parametrisations of the test below)."""
     q, k, v, g = _inputs(s=s, sk=sk)
     scale = q.shape[-1] ** -0.5
     out = jfa._blockwise_reference(*map(jnp.asarray, (q, k, v)), causal,
                                    scale, block_k=32)
     want = jfa._flash_bwd(*map(jnp.asarray, (q, k, v)), out, jnp.asarray(g),
                           causal, scale, block_k=32)
-    got = tfa.flash_bwd_reference(*_torch(q, k, v, np.array(out), g),
-                                  causal, scale, block_k=32)
+    return np.array(out), [np.asarray(x) for x in want]
+
+
+@pytest.mark.parametrize("lse_from", [None, "forward"],
+                         ids=["pass1", "fwd_lse"])
+@pytest.mark.parametrize("s,sk,causal", CASES,
+                         ids=["s%dsk%d%s" % (s, sk, "c" if c else "f")
+                              for s, sk, c in CASES])
+def test_plain_backward_matches_jax_flash_bwd(s, sk, causal, lse_from):
+    """s != sk anchors the causal diagonal at 0 (s < sk leaves kv rows
+    no query reaches: their dk, dv are 0); sk = 80 with 32-row blocks is
+    a ragged kv tail. ``lse_from``: None recomputes the row statistics
+    (the step-by-step port of ``_flash_bwd``'s pass 1); "forward" takes
+    the lse that ``blockwise_reference`` returns, as the kernels do."""
+    q, k, v, g = _inputs(s=s, sk=sk)
+    scale = q.shape[-1] ** -0.5
+    out, want = _jax_flash_bwd(s, sk, causal)
+    lse = None
+    if lse_from == "forward":
+        lse = tfa.blockwise_reference(*_torch(q, k, v), causal, scale,
+                                      block_k=32, return_lse=True)[1]
+    got = tfa.flash_bwd_reference(*_torch(q, k, v, out, g), causal, scale,
+                                  block_k=32, lse=lse)
     for name, a, b in zip("qkv", got, want):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=GRAD_TOL,
                                    atol=GRAD_TOL, err_msg="d" + name)
@@ -61,23 +83,37 @@ def test_plain_backward_matches_jax_flash_bwd(s, sk, causal):
         assert not got[1][:, :, s:].any() and not got[2][:, :, s:].any()
 
 
-def test_autograd_matches_jax_grad_of_the_interpreted_kernel():
-    """The reference suite's shape (tests/test_flash_attention.py:47):
-    s=48, d=8, causal, the loss sum(out**2); JAX differentiates its
-    Pallas kernel in interpret mode through its custom_vjp."""
+@functools.lru_cache(maxsize=None)
+def _jax_grad_of_the_interpreted_kernel():
     q, k, v, _ = _inputs(b=2, s=48, d=8)
 
     def loss_jax(q, k, v):
         return (jfa.flash_attention(q, k, v, True, None, 16, 16, True)
                 ** 2).sum()
 
-    want = jax.grad(loss_jax, argnums=(0, 1, 2))(
-        *map(jnp.asarray, (q, k, v)))
+    return [np.asarray(x) for x in jax.grad(loss_jax, argnums=(0, 1, 2))(
+        *map(jnp.asarray, (q, k, v)))]
+
+
+@pytest.mark.parametrize("row_stats", ["allowed", "raises"])
+def test_autograd_matches_jax_grad_of_the_interpreted_kernel(monkeypatch,
+                                                             row_stats):
+    """The reference suite's shape (tests/test_flash_attention.py:47):
+    s=48, d=8, causal, the loss sum(out**2); JAX differentiates its
+    Pallas kernel in interpret mode through its custom_vjp. With
+    ``_row_stats`` made to raise, the same gradients come: the backward
+    takes the forward's lse and recomputes no statistics."""
+    if row_stats == "raises":
+        def recompute(*args):
+            raise AssertionError("the backward recomputed the row stats")
+        monkeypatch.setattr(tfa, "_row_stats", recompute)
+    q, k, v, _ = _inputs(b=2, s=48, d=8)
+    want = _jax_grad_of_the_interpreted_kernel()
     tq, tk, tv = (t.requires_grad_(True) for t in _torch(q, k, v))
     loss = (tfa.flash_attention(tq, tk, tv, True) ** 2).sum()
     got = torch.autograd.grad(loss, (tq, tk, tv))
     for a, b in zip(got, want):
-        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=GRAD_TOL,
+        np.testing.assert_allclose(a.numpy(), b, rtol=GRAD_TOL,
                                    atol=GRAD_TOL)
 
 
@@ -101,19 +137,45 @@ def test_function_gradient_matches_autograd_of_plain_forward(s, sk, causal):
 
 def test_bf16_inputs_give_bf16_grads():
     """bf16 in, bf16 gradients out, computed in f32 from the same bf16
-    values: the bf16 path is the f32 one rounded at the end."""
+    values: the bf16 path is the f32 one rounded at the end (the f32 one
+    given the lse of the f32 forward on the same values)."""
     q, k, v, g = _torch(*_inputs(s=64))
     b16 = [t.bfloat16() for t in (q, k, v, g)]
     leaves = [t.clone().requires_grad_(True) for t in b16[:3]]
     out = tfa.flash_attention(*leaves, True)
     assert out.dtype == torch.bfloat16
     got = torch.autograd.grad(out, leaves, b16[3])
-    want = tfa.flash_bwd_reference(*[t.float() for t in b16[:3]],
-                                   out.detach().float(), b16[3].float(),
-                                   True, 0.25)
+    f32 = [t.float() for t in b16[:3]]
+    lse = tfa.blockwise_reference(*f32, True, 0.25, return_lse=True)[1]
+    want = tfa.flash_bwd_reference(*f32, out.detach().float(),
+                                   b16[3].float(), True, 0.25, lse=lse)
     for a, b in zip(got, want):
         assert a.dtype == torch.bfloat16
         torch.testing.assert_close(a, b.bfloat16(), rtol=0, atol=0)
+
+
+LSE_CASES = [(64, 64, True), (64, 64, False), (50, 50, True),
+             (40, 96, True), (96, 40, False), (64, 8, False)]
+
+
+@pytest.mark.parametrize("s,sk,causal", LSE_CASES,
+                         ids=["s%dsk%d%s" % (s, sk, "c" if c else "f")
+                              for s, sk, c in LSE_CASES])
+def test_plain_forward_lse_matches_pass_one(s, sk, causal):
+    """The lse that ``blockwise_reference`` returns beside its output is
+    the JAX backward's pass 1 (``flash_bwd_stats_reference``) within
+    1e-6: causal, full, ragged (50 over 32-row blocks), s != sk both
+    ways and a short kv (8 keys in one block)."""
+    q, k, v, g = _torch(*_inputs(s=s, sk=sk, scale=1.0))
+    scale = q.shape[-1] ** -0.5
+    out, lse = tfa.blockwise_reference(q, k, v, causal, scale, block_k=32,
+                                       return_lse=True)
+    assert torch.equal(out, tfa.blockwise_reference(q, k, v, causal, scale,
+                                                    block_k=32))
+    want = tfa.flash_bwd_stats_reference(q, k, out, g, causal, scale,
+                                         block_k=32)[0]
+    assert lse.dtype == torch.float32 and lse.shape == want.shape
+    torch.testing.assert_close(lse, want, rtol=0, atol=1e-6)
 
 
 def test_stats_reference_is_pass_one():
@@ -144,13 +206,21 @@ def test_cuda_backward_checks_before_any_library_loads(monkeypatch):
     shape the kernels do not take they raise before nvcc is asked."""
     loads = []
     monkeypatch.setattr(tfa, "_kernel_lib", loads.append)
+    lse = torch.zeros((1, 1, 8))
     q = torch.zeros((1, 1, 8, 12))
     with pytest.raises(ValueError, match="multiple of 8"):
-        tfa.flash_bwd(q, q, q, q, q, True, 12 ** -0.5)
+        tfa.flash_bwd(q, q, q, q, q, lse, True, 12 ** -0.5)
     q = torch.zeros((1, 1, 8, 16), dtype=torch.float16)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
-        tfa.flash_bwd(q, q, q, q, q, True, 0.25)
+        tfa.flash_bwd(q, q, q, q, q, lse, True, 0.25)
     q = torch.zeros((1, 1, 16, 8)).transpose(2, 3)
     with pytest.raises(ValueError, match="contiguous"):
-        tfa.flash_bwd(q, q, q, q, q, True, 0.25)
+        tfa.flash_bwd(q, q, q, q, q, lse, True, 0.25)
+    q = torch.zeros((1, 1, 8, 16))
+    with pytest.raises(ValueError, match="no lse from the forward"):
+        tfa.flash_bwd(q, q, q, q, q, None, True, 0.25)
+    with pytest.raises(ValueError, match="takes lse as float32"):
+        tfa.flash_bwd(q, q, q, q, q, lse.double(), True, 0.25)
+    with pytest.raises(ValueError, match="takes lse as float32"):
+        tfa._launch(q, q, q, True, 0.25, lse=torch.zeros((1, 1, 9)))
     assert loads == []

@@ -25,11 +25,17 @@ backward's (``flash_bwd_sm90.cu``) alone: ``-k sm90_backward``.
 - Each kernel by name over the shapes the others serve: the wgmma
   kernels at their head dims with ragged, unequal and short kv; the
   FFMA kernel on bf16 at head_dim 64 and 128.
-- The backward (``bwd_stats`` and the dq and dk/dv kernels that
+- The lse each forward kernel writes when asked: the output unchanged
+  bit for bit, every row's lse within ``chip_smoke.LSE_TOL`` of the
+  backward's pass 1 (``flash_bwd_stats_reference``), nothing written
+  past the rows.
+- The backward (``bwd_delta`` and the dq and dk/dv kernels that
   ``bwd_kernel_for`` picks: ``flash_bwd_sm90.cu`` for bf16 at head_dim
-  64 and 128, ``flash_bwd.cu`` otherwise) against ``flash_bwd_reference`` over
-  the same shapes, causal and not, bf16 and f32, within
-  ``chip_smoke.check_grads``; the sm90 backward by name at its bf16
+  64 and 128, ``flash_bwd.cu`` otherwise), on the lse the forward kernel
+  wrote, against ``flash_bwd_reference`` (which recomputes the row
+  statistics) over the same shapes, causal and not, bf16 and f32, within
+  ``chip_smoke.check_grads``; ``bwd_delta`` against the plain delta
+  (``chip_smoke.check_delta``); the sm90 backward by name at its bf16
   shapes (ragged, unequal, short kv, odd lengths), its lse and delta
   followed by NaN so that a read past s shows, and on
   ``chip_smoke.paired_inputs``; the gradient through
@@ -40,10 +46,13 @@ backward's (``flash_bwd_sm90.cu``) alone: ``-k sm90_backward``.
   tile that holds the causal diagonal, the ragged-kv mask. In
   flash_fwd_sm90.cu: the same three, and P.V without P's low half (P
   rounded once to bf16). In flash_fwd_tf32x3.cu: the same three, and
-  no lo terms anywhere (TF32 alone). In flash_bwd.cu: kv tiles that no
+  no lo terms anywhere (TF32 alone). In each of the three: the lse
+  written as m alone, without log(l) (``chip_smoke.check_lse``). In
+  flash_bwd.cu: kv tiles that no
 query reaches returning early, so that their dk and dv rows keep the
-allocator's junk (causal, s < sk), and the ragged-kv mask of the stats
-kernel (the zero-filled kv tail then counts in each row's lse). In
+allocator's junk (causal, s < sk), and ``bwd_delta`` summing all but the
+last 8 columns of each row (``check_delta``, and ``check_grads`` of the
+backward that takes it). In
 flash_bwd_sm90.cu: P's lo term dropped in dv, dS's lo term dropped in
 dk and in dq (on ``paired_inputs``, where rounding once shows), query
 rows past s left unmasked in dk/dv (their lse read past the tensor,
@@ -240,18 +249,73 @@ def test_tf32x3_planted_fault_fails_the_check(gen, tmp_path, monkeypatch,
           % (name, shape, causal, exc.value))
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("shape", SHAPES,
+                         ids=["b%dh%ds%dsk%dd%d" % x for x in SHAPES])
+def test_forward_lse_matches_pass_one(gen, shape, causal, dtype):
+    """The kernel that ``kernel_for`` picks, launched with an lse buffer
+    (NaN before, and a NaN tail after it): the output is the launch
+    without lse bit for bit, every row's lse is the backward's pass 1
+    within ``LSE_TOL``, and the tail stays NaN."""
+    b, h, s, sk, d = shape
+    q, k, v = chip_smoke.flash_inputs(b, h, s, sk, d, dtype, gen)
+    out, lse = chip_smoke.launch_with_lse(q, k, v, causal, tail=64)
+    assert torch.equal(out, fa.flash_attention(q, k, v, causal))
+    chip_smoke.check_lse(lse, fa.flash_bwd_stats_reference(
+        q, k, out, out, causal, d ** -0.5)[0], (shape, causal, dtype))
+
+
+# (kernel, its source's library attribute and binder, dtype): the line
+# that writes lse is the same in all three sources
+LSE_FAULT = ("m[i] + logf(denom);", "m[i];")
+LSE_FAULT_KERNELS = [
+    ("sm90", "_lib_sm90", fa.bind_sm90, torch.bfloat16),
+    ("tf32x3", "_lib_tf32x3", fa.bind_tf32x3, torch.float32),
+    ("ffma", "_lib", fa.bind, torch.bfloat16),
+]
+
+
+@pytest.mark.parametrize("kernel,attr,binder,dtype", LSE_FAULT_KERNELS,
+                         ids=[f[0] for f in LSE_FAULT_KERNELS])
+def test_lse_without_log_l_fails_the_check(gen, tmp_path, monkeypatch,
+                                           kernel, attr, binder, dtype):
+    """A forward that writes m without log(l) fails ``check_lse``, and
+    the backward that takes its lse fails ``check_grads``."""
+    monkeypatch.setattr(fa, attr, binder(
+        _planted(tmp_path, fa.SOURCES[kernel], *LSE_FAULT)))
+    b, h, s, sk, d = shape = (2, 12, 1024, 1024, 64)
+    q, k, v = chip_smoke.flash_inputs(b, h, s, sk, d, dtype, gen)
+    g = torch.randn((b, h, s, d), generator=gen, device="cuda").to(dtype)
+    out, lse = chip_smoke.launch_with_lse(q, k, v, True, kernel)
+    with pytest.raises(AssertionError, match="disagrees") as exc:
+        chip_smoke.check_lse(lse, fa.flash_bwd_stats_reference(
+            q, k, out, g, True, d ** -0.5)[0], (kernel, shape))
+    print("planted %s fault 'lse without log(l)': %s" % (kernel, exc.value))
+    with pytest.raises(AssertionError, match="disagrees"):
+        chip_smoke.check_grads(
+            fa.flash_bwd(q, k, v, out, g, lse, True, d ** -0.5),
+            fa.flash_bwd_reference(q, k, v, out, g, True, d ** -0.5), dtype,
+            (kernel, "lse without log(l)"))
+
+
 def _run_bwd(gen, shape, causal, dtype, kernel=None):
-    """The backward kernels' (dq, dk, dv) and the plain version's, with
-    NaN junk freed into the allocator first, so that rows the kernels do
-    not write show: ``kernel``'s dq and dk/dv by name, or the ones
-    ``bwd_kernel_for`` picks."""
+    """The backward kernels' (dq, dk, dv), on the lse the forward kernel
+    wrote, and the plain version's (which recomputes the row
+    statistics), with NaN junk freed into the allocator first, so that
+    rows the kernels do not write show: ``kernel``'s dq and dk/dv by
+    name, or the ones ``bwd_kernel_for`` picks. ``bwd_delta`` is held to
+    ``check_delta`` on the way."""
     b, h, s, sk, d = shape
     q, k, v = chip_smoke.flash_inputs(b, h, s, sk, d, dtype, gen)
     g = torch.randn((b, h, s, d), generator=gen, device="cuda").to(dtype)
-    out = fa.flash_attention(q, k, v, causal)
+    out, lse = chip_smoke.launch_with_lse(q, k, v, causal)
+    chip_smoke.check_delta(fa._bwd_delta(out, g), out, g,
+                           ("bwd_delta", shape, dtype, causal))
     junk = [torch.full_like(k, float("nan")) for _ in range(2)]
     del junk
-    got = fa.flash_bwd(q, k, v, out, g, causal, d ** -0.5, kernel)
+    got = fa.flash_bwd(q, k, v, out, g, lse, causal, d ** -0.5, kernel)
     torch.cuda.synchronize()
     return got, fa.flash_bwd_reference(q, k, v, out, g, causal, d ** -0.5)
 
@@ -300,9 +364,9 @@ BWD_FAULTS = [
      "if (causal && k0 >= s) return;  // planted\n"
      "  const int first = causal ? k0 / B : 0;", (1, 2, 100, 1000, 64),
      True),
-    ("no ragged mask in the stats",
-     "ok[j] = kp < sk && (!causal || qp >= kp);",
-     "ok[j] = !causal || qp >= kp;", (2, 2, 1024, 24, 64), False),
+    ("bwd_delta drops the last 8 columns",
+     "const int chunks = d / EV;           // a row's 16-byte vectors",
+     "const int chunks = (d - 8) / EV;", (2, 2, 256, 256, 64), False),
 ]
 
 
@@ -315,8 +379,8 @@ def test_backward_planted_fault_fails_the_check(gen, tmp_path, monkeypatch,
                                                 causal, dtype):
     monkeypatch.setattr(fa, "_lib_bwd", fa.bind_bwd(
         _planted(tmp_path, fa._SOURCE_BWD, line, broken)))
-    got, want = _run_bwd(gen, shape, causal, dtype, "ffma")
     with pytest.raises(AssertionError, match="disagrees") as exc:
+        got, want = _run_bwd(gen, shape, causal, dtype, "ffma")
         chip_smoke.check_grads(got, want, dtype, name)
     print("planted backward fault %r at %s causal=%s: %s"
           % (name, shape, causal, exc.value))
@@ -332,8 +396,9 @@ def _nan_tail(x):
 
 
 def _run_sm90_bwd(gen, shape, causal, paired=False):
-    """The sm90 backward by name (``bwd_stats``, then ``bwd_dq_sm90`` and
-    ``bwd_dkdv_sm90`` on lse and delta with a NaN tail, NaN junk freed
+    """The sm90 backward by name (the forward's lse and ``bwd_delta``'s
+    delta, then ``bwd_dq_sm90`` and ``bwd_dkdv_sm90`` on lse and delta
+    with a NaN tail, NaN junk freed
     into the allocator first) and the plain version's gradients; on
     ``chip_smoke.paired_inputs`` when ``paired``."""
     b, h, s, sk, d = shape
@@ -346,9 +411,8 @@ def _run_sm90_bwd(gen, shape, causal, paired=False):
                                           gen)
         g = torch.randn((b, h, s, d), generator=gen,
                         device="cuda").to(torch.bfloat16)
-    out = fa.flash_attention(q, k, v, causal)
-    lse, delta = (_nan_tail(x) for x in fa._bwd_stats(q, k, out, g, causal,
-                                                      scale))
+    out, lse = chip_smoke.launch_with_lse(q, k, v, causal)
+    lse, delta = _nan_tail(lse), _nan_tail(fa._bwd_delta(out, g))
     junk = [torch.full_like(k, float("nan")) for _ in range(2)]
     del junk
     fa.reset_launches()

@@ -31,7 +31,9 @@ On the CPU, no card needed:
   refuses what it does not take before any library loads.
 - The numerics decision behind the sm90 backward. :func:`emulate_sm90_bwd`
   repeats its arithmetic in plain torch: f32 scores and dp from bf16
-  operands (exact products, f32 sums), the scale after the product, P and
+  operands (exact products, f32 sums), the scale after the product, P
+  from the lse that the emulated sm90 forward leaves (its own order:
+  product, then scale, then the online softmax over 64-key tiles) and
   dS in f32, then rounded to bf16 once or split into hi and lo before the
   products that take them. On ``chip_smoke.bwd_phase``'s inputs the split
   passes ``chip_smoke.check_grads`` (``BWD_TOL``) by a wide margin;
@@ -108,9 +110,10 @@ def emulate_tf32x3(q, k, v, causal, sm_scale, split):
     return acc / torch.clamp_min(l, 1e-30)[..., None]
 
 
-def emulate_sm90(q, k, v, causal, sm_scale, split):
+def emulate_sm90(q, k, v, causal, sm_scale, split, return_lse=False):
     """The sm90 kernel's arithmetic in plain torch, with P rounded to
-    bf16 once (``split`` False) or as hi + lo (``split`` True)."""
+    bf16 once (``split`` False) or as hi + lo (``split`` True); with
+    ``return_lse``, (out, lse) as the kernel writes them."""
     b, h, s, d = q.shape
     sk = k.shape[2]
     kb, vb, n_tiles = fa._block_layout(k, v, TILE)
@@ -133,7 +136,9 @@ def emulate_sm90(q, k, v, causal, sm_scale, split):
             pv = pv + torch.einsum("bhqk,bhkd->bhqd", lo, vb[t])
         acc = acc * corr[..., None] + pv
         m = m_new
-    return (acc / torch.clamp_min(l, 1e-30)[..., None]).to(torch.bfloat16)
+    l = torch.clamp_min(l, 1e-30)
+    out = (acc / l[..., None]).to(torch.bfloat16)
+    return (out, m + torch.log(l)) if return_lse else out
 
 
 # (s, sk, causal): the smoke's bf16 cases at head_dim 64
@@ -155,7 +160,8 @@ def _split(x, split):
 
 def emulate_sm90_bwd(q, k, v, out, g, causal, scale, split, drop_lo=None):
     """The sm90 backward's arithmetic in plain torch: (dq, dk, dv) in
-    bf16 from the lse and delta that ``bwd_stats`` gives. s and dp are
+    bf16 from the lse that the sm90 forward writes (:func:`emulate_sm90`'s
+    order of operations) and delta = rowsum(g * out). s and dp are
     f32 sums of exact products of the bf16 inputs, the scale applied
     after the product; P = exp(s * scale - lse) (0 where masked) and
     dS = P (dp - delta) in f32; each is rounded to bf16 once (``split``
@@ -164,7 +170,8 @@ def emulate_sm90_bwd(q, k, v, out, g, causal, scale, split, drop_lo=None):
     summed in f32; dq and dk take the scale at the end. ``drop_lo``
     ("dv", "dk" or "dq") drops the lo term of that one product."""
     s, sk = q.shape[2], k.shape[2]
-    lse, delta = fa.flash_bwd_stats_reference(q, k, out, g, causal, scale)
+    lse = emulate_sm90(q, k, v, causal, scale, True, return_lse=True)[1]
+    delta = fa.flash_bwd_delta_reference(out, g)
     q32, k32, v32, g32 = (x.float() for x in (q, k, v, g))
     mask = fa._block_mask(0, sk, s, sk, causal, q.device)
     scores = torch.einsum("bhqd,bhkd->bhqk", q32, k32) * scale
@@ -179,26 +186,28 @@ def emulate_sm90_bwd(q, k, v, out, g, causal, scale, split, drop_lo=None):
     return tuple(x.to(torch.bfloat16) for x in (dq, dk, dv))
 
 
-def _bwd_inputs(b, h, s, sk):
-    """``chip_smoke.bwd_phase``'s inputs on the CPU (its seed, d64
-    bf16): q, k, v and g."""
+def _bwd_inputs(b, h, s, sk, d=64):
+    """``chip_smoke.bwd_phase``'s inputs on the CPU (its seed, bf16):
+    q, k, v and g."""
     gen = torch.Generator().manual_seed(chip_smoke.SEED + 5)
-    q, k, v = chip_smoke.flash_inputs(b, h, s, sk, 64, torch.bfloat16, gen,
+    q, k, v = chip_smoke.flash_inputs(b, h, s, sk, d, torch.bfloat16, gen,
                                       device="cpu")
-    g = torch.randn((b, h, s, 64), generator=gen).to(torch.bfloat16)
+    g = torch.randn((b, h, s, d), generator=gen).to(torch.bfloat16)
     return q, k, v, g
 
 
-def bwd_margin(b, h, s, sk, causal, split):
+def bwd_margin(b, h, s, sk, causal, split, d=64):
     """The emulated sm90 backward's worst excess over ``check_grads``'s
     atol (the check passes at or below 1) against
-    ``flash_bwd_reference``; raises where the check fails."""
-    q, k, v, g = _bwd_inputs(b, h, s, sk)
-    out = fa.blockwise_reference(q, k, v, causal, 0.125)
-    want = fa.flash_bwd_reference(q, k, v, out, g, causal, 0.125)
-    got = emulate_sm90_bwd(q, k, v, out, g, causal, 0.125, split)
+    ``flash_bwd_reference``, which recomputes the row statistics with the
+    scale before the product; raises where the check fails."""
+    q, k, v, g = _bwd_inputs(b, h, s, sk, d)
+    scale = d ** -0.5
+    out = fa.blockwise_reference(q, k, v, causal, scale)
+    want = fa.flash_bwd_reference(q, k, v, out, g, causal, scale)
+    got = emulate_sm90_bwd(q, k, v, out, g, causal, scale, split)
     return chip_smoke.check_grads(got, want, torch.bfloat16,
-                                  ("emulated sm90 backward", s, sk, causal,
+                                  ("emulated sm90 backward", s, sk, d, causal,
                                    "split" if split else "rounded once"))[1]
 
 
@@ -228,7 +237,7 @@ def test_kernel_for_picks_by_dtype_and_head_dim(dtype, head_dim, kernel):
 ])
 def test_bwd_kernel_for_picks_by_dtype_and_head_dim(dtype, head_dim, kernel):
     assert fa.bwd_kernel_for(dtype, head_dim) == kernel
-    assert fa.bwd_kernel_names(kernel)[0] == "bwd_stats"
+    assert fa.bwd_kernel_names(kernel)[0] == "bwd_delta"
 
 
 @pytest.mark.parametrize("dtype,head_dim,match", [
@@ -265,7 +274,7 @@ def test_sm90_backward_refuses_what_it_does_not_take(monkeypatch, dtype,
                                            scale, kernel),
                  lambda kernel: fa._bwd_dkdv(q, q, q, q, lse, lse, True,
                                              scale, kernel),
-                 lambda kernel: fa.flash_bwd(q, q, q, q, q, True, scale,
+                 lambda kernel: fa.flash_bwd(q, q, q, q, q, lse, True, scale,
                                              kernel)):
         with pytest.raises(ValueError, match="takes bfloat16 at head_dim"):
             call("sm90")
@@ -295,7 +304,7 @@ def test_cpu_tensors_run_the_plain_version_and_count_nothing():
     assert torch.equal(out, fa.blockwise_reference(q, k, v, True, 0.125))
     assert fa.flash_attention.launches == 0
     assert fa.flash_attention.kernel_launches == {
-        "sm90": 0, "tf32x3": 0, "ffma": 0, "bwd_stats": 0, "bwd_dq": 0,
+        "sm90": 0, "tf32x3": 0, "ffma": 0, "bwd_delta": 0, "bwd_dq": 0,
         "bwd_dkdv": 0, "bwd_dq_sm90": 0, "bwd_dkdv_sm90": 0}
 
 
@@ -325,19 +334,24 @@ def test_tf32_alone_fails_the_f32_check_and_the_split_passes(s, sk, causal):
                            torch.float32, "3xTF32")
 
 
-# (s, sk, causal): the backward's cases, CASES and the smoke's causal
-# s < sk (kv rows that no query reaches)
-BWD_CASES = CASES + [(100, 1000, True)]
+# (s, sk, causal, d): the backward's cases, CASES and the smoke's causal
+# s < sk (kv rows that no query reaches) at head_dim 64, and two at 128,
+# where the scale 128**-0.5 is not a power of two, so scaling after the
+# product (the kernels' lse) and before it (the reference's) round apart
+BWD_CASES = [c + (64,) for c in CASES + [(100, 1000, True)]] + [
+    (1024, 1024, True, 128), (1000, 1000, False, 128)]
 
 
-@pytest.mark.parametrize("s,sk,causal", BWD_CASES,
-                         ids=["s%dsk%d%s" % (s, sk, "c" if c else "f")
-                              for s, sk, c in BWD_CASES])
-def test_sm90_backward_split_passes_the_check(s, sk, causal):
-    """P and dS split into bf16 hi and lo: the emulated sm90 backward
-    passes ``check_grads`` (the unchanged ``BWD_TOL``) against
-    ``flash_bwd_reference`` with room to spare."""
-    assert bwd_margin(1, 2, s, sk, causal, True) < 0.05
+@pytest.mark.parametrize("s,sk,causal,d", BWD_CASES,
+                         ids=["s%dsk%d%s%s" % (s, sk, "c" if c else "f",
+                                               "" if d == 64 else "d%d" % d)
+                              for s, sk, c, d in BWD_CASES])
+def test_sm90_backward_split_passes_the_check(s, sk, causal, d):
+    """P and dS split into bf16 hi and lo, P taken from the emulated
+    forward's lse: the emulated sm90 backward passes ``check_grads``
+    (the unchanged ``BWD_TOL``) against ``flash_bwd_reference`` with room
+    to spare."""
+    assert bwd_margin(1, 2, s, sk, causal, True, d) < 0.05
 
 
 @pytest.mark.parametrize("drop_lo", [None, "dv", "dk", "dq"])
@@ -380,14 +394,14 @@ def main():
     print("the sm90 backward vs flash_bwd_reference, check_grads: worst "
           "excess over the atol")
     for b, h in ((1, 2), (4, 12)):
-        for s, sk, causal in BWD_CASES:
+        for s, sk, causal, d in BWD_CASES:
             try:
-                once = "%.4fx" % bwd_margin(b, h, s, sk, causal, False)
+                once = "%.4fx" % bwd_margin(b, h, s, sk, causal, False, d)
             except AssertionError as e:
                 once = "fails (%s)" % str(e).split(": ")[-1]
-            print("b%d h%d s=%d sk=%d %s: P, dS rounded once %s, split %.4fx"
-                  % (b, h, s, sk, "causal" if causal else "full", once,
-                     bwd_margin(b, h, s, sk, causal, True)))
+            print("b%d h%d s=%d sk=%d d=%d %s: P, dS rounded once %s, split "
+                  "%.4fx" % (b, h, s, sk, d, "causal" if causal else "full",
+                             once, bwd_margin(b, h, s, sk, causal, True, d)))
 
 
 if __name__ == "__main__":
