@@ -75,11 +75,28 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    each parameter's gradient within relative Frobenius 2e-2; every
    loss finite. Prints tokens/s, step ms, implied TFLOP/s, MFU against
    the H100's 989 TFLOP/s bf16, peak memory and a profile of one step
-   with the device-busy share.
+   with the device-busy share;
+6. resnet: ``edl_tpu_torch.bench.run`` trains ResNet50_vd at full
+   width and depth (batch 128 x 224, s2d stem, bf16 over f32 params
+   and BN statistics, ``sgd(0.1, momentum=0.9)``) on the device feed:
+   every loss finite, the first within ``RESNET_LOSS0_TOL`` of ln(1000)
+   (each block's last BN scale starts at zero). On the same weights and
+   batch the first step runs in bf16, f32 (TF32 off) and f64: losses
+   and gradients held to f64's (``RESNET_*_RTOL``); the s2d stem is held
+   to the plain stride-2 stem on one kernel. A short host-fed run
+   (``synthetic_pipeline`` through ``DevicePrefetcher``) prints the
+   prefetcher's ``stats()``. Then ``resnet_teacher`` (ResNet50_vd at
+   224) serves predicts of 1-64 rows through the port's ``RpcClient``,
+   each reply's logits held to the model's direct eval forward of the
+   same padded rows, probs rows summing to 1. None of these paths runs
+   attention: each must launch no flash kernel. Prints img/s, step ms,
+   FLOPs per image, implied TFLOP/s, MFU, peak memory and a profile of
+   one step (top kernels, device time by kind, BatchNorm's own device
+   time from its profiler ranges, the device-busy share, aten calls).
 
 Prints a ``kernels`` JSON line (the three forward kernels, with and
-without lse, and the backward's five, launches by path), the card's
-name and power limit, and last
+without lse, and the backward's five, launches by path, the ResNet
+paths' zeros included), the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``. Exits
 non-zero, printing no result, when CUDA is unavailable.
 """
@@ -98,8 +115,8 @@ import torch
 
 from edl_tpu_torch import bench
 from edl_tpu_torch.distill.teacher_server import (INIT_SEED, gpt_teacher,
-                                                  lm_teacher)
-from edl_tpu_torch.models import gpt
+                                                  lm_teacher, resnet_teacher)
+from edl_tpu_torch.models import gpt, resnet
 from edl_tpu_torch.models.gpt import Gpt
 from edl_tpu_torch.ops import flash_attention as fa
 from edl_tpu_torch.rpc.client import RpcClient
@@ -186,6 +203,59 @@ TRAIN_WARMUP, TRAIN_ITERS = 2, 8
 # activations: the first-step loss within 1e-2 relative, each parameter's
 # gradient within relative Frobenius 2e-2
 TRAIN_LOSS_RTOL, TRAIN_GRAD_RTOL = 1e-2, 2e-2
+# the resnet phase: ResNet50_vd as bench.run trains it (batch 128 x 224,
+# s2d, bf16 over f32 params and BN statistics, sgd(0.1, momentum 0.9))
+RESNET_BATCH, RESNET_IMAGE = 128, 224
+RESNET_WARMUP, RESNET_ITERS = 3, 10
+HOSTFED_WARMUP, HOSTFED_ITERS = 2, 5
+# the first loss: bn3 starts at zero, so every residual branch is off
+# and the head sees the shortcut path alone; its logits are O(1), the
+# loss within RESNET_LOSS0_TOL of ln(1000)
+RESNET_LOSS0_TOL = 1.0
+# the first step on the same weights (each bn3 scale set to 0.25, so
+# that no gradient is zero by construction) and batch, in bf16, f32 (TF32
+# off) and f64: the f32 loss within RESNET_F32_LOSS_RTOL of f64 and each
+# f32 gradient within relative Frobenius RESNET_GRAD_RTOL (GPT's limit)
+# of f64's; the bf16 loss within RESNET_LOSS_RTOL relative (GPT's) and
+# the bf16 gradient, all leaves together and its median leaf, within
+# relative Frobenius RESNET_BF16_GRAD_RTOL of f64's. BatchNorm's backward
+# subtracts from each cotangent its projections on 1 and on the
+# normalized input, so the bf16 rounding of the cotangents leaves the
+# gradient noisy. The JAX package's own bf16 gradient does the same: at
+# ResNet50_vd's widths on the CPU (`python tests/test_torch_resnet.py`,
+# the same weights as here, batch 16 at 64 px) it sits 0.45 from its f64
+# one over all leaves, 0.43 for the median leaf, 0.69 for its worst
+# leaf (b32 at 128 px: 0.43, 0.44, 0.65). The limit is 4/3 of that, well
+# apart from the 1.0 that a zero gradient reads; each leaf is held within
+# RESNET_BF16_LEAF_RTOL, under that 1.0 (a sign flip reads 2)
+RESNET_F32_LOSS_RTOL, RESNET_LOSS_RTOL = 1e-5, 1e-2
+RESNET_GRAD_RTOL, RESNET_BF16_GRAD_RTOL = 2e-2, 0.6
+RESNET_BF16_LEAF_RTOL = 0.9
+# the s2d stem vs the plain stride-2 stem on the same kernel and images,
+# both in f32 with TF32 off: only the order of the 27 products differs
+S2D_TOL = 1e-5
+# the served logits vs the model's direct eval forward of the same rows
+# padded as the server pads them (zeros), relative to |logits| max: one
+# bf16 ulp, for a batch position that changes the conv algorithm's order
+TEACHER_TOL = 2.0 ** -7
+# a ResNet step's kernels by kind, from their names (first match wins):
+# the pools, PyTorch's reductions (BN statistics and their backward
+# sums), its elementwise kernels (BN, ReLU, adds, casts, the optimizer),
+# and cuDNN's and CUTLASS's convolutions with their layout transforms
+RESNET_KERNEL_GROUPS = {
+    "pool": ("pool",),
+    "reduce": ("reduce_kernel",),
+    "elementwise": ("elementwise", "foreach", "CatArrayBatched",
+                    "copy_kernel"),
+    "conv": ("xmma", "cutlass", "cudnn", "conv", "implicit", "gemm",
+             "wgrad", "dgrad", "fprop", "nchw", "nhwc"),
+}
+
+
+# ops/batch_norm.py's profiler ranges: BatchNorm's own kernels (its
+# casts, statistics, normalization and backward), apart from the
+# elementwise kernels of ReLU, the residual adds and the optimizer
+BN_RANGES = ("batch_norm", "batch_norm_backward")
 
 
 def card():
@@ -1172,11 +1242,246 @@ def train_phase(gpu):
     return by_path
 
 
-def step_profile(stats, what, gpu):
+def resnet_phase(gpu):
+    """Phase 6: ResNet50_vd training through ``bench.run`` (the device
+    feed, then the host feed), the first step in bf16 and f32 against
+    f64 and the s2d stem against the plain one, and ``resnet_teacher``
+    serving predicts. None of it
+    runs attention: every path must launch no flash kernel. Returns the
+    flash launches by path (all zero)."""
+    by_path = {}
+    stats = {}
+    torch.cuda.empty_cache()
+    fa.reset_launches()
+    result = bench.run(batch_per_chip=RESNET_BATCH, image_size=RESNET_IMAGE,
+                       warmup=RESNET_WARMUP, iters=RESNET_ITERS, s2d=True,
+                       feed="device", device="cuda", stats=stats)
+    by_path["train_resnet"] = dict(fa.flash_attention.kernel_launches)
+    losses = stats["losses"]
+    log("resnet: ResNet50_vd b%d x %d s2d, device feed: %.1f img/s per "
+        "card, %.3f ms per step (%d timed of %d), %.3f GFLOP per image "
+        "(forward %.3f, x3), implied %.1f TFLOP/s, MFU %.4f of 989 TFLOP/s "
+        "bf16; peak device memory %.2f GB; losses %s [%s]"
+        % (RESNET_BATCH, RESNET_IMAGE, stats["imgs_per_s"], stats["step_ms"],
+           stats["iters"], len(losses), stats["flops_per_image"] / 1e9,
+           stats["flops_per_image"] / 3e9, stats["implied_tflops"],
+           stats["mfu"], stats["peak_bytes"] / 1e9,
+           ["%.4f" % x for x in losses], gpu))
+    log("resnet: %s [%s]" % (json.dumps(result), gpu))
+    if not np.isfinite(losses).all():
+        raise AssertionError("resnet: non-finite loss %s" % losses)
+    if abs(losses[0] - np.log(1000.0)) > RESNET_LOSS0_TOL:
+        raise AssertionError("resnet: first loss %.4f is not within %g of "
+                             "ln(1000)" % (losses[0], RESNET_LOSS0_TOL))
+    step_profile(stats, "resnet: one ResNet50_vd train step", gpu,
+                 groups=RESNET_KERNEL_GROUPS, ranges=BN_RANGES)
+    del stats
+    resnet_parity(gpu)
+
+    stats = {}
+    torch.cuda.empty_cache()
+    fa.reset_launches()
+    result = bench.run(batch_per_chip=RESNET_BATCH, image_size=RESNET_IMAGE,
+                       warmup=HOSTFED_WARMUP, iters=HOSTFED_ITERS, s2d=True,
+                       feed="host", device="cuda", stats=stats)
+    by_path["train_resnet_hostfed"] = dict(fa.flash_attention.kernel_launches)
+    feed = stats["prefetch"]
+    log("resnet: host feed (synthetic_pipeline -> DevicePrefetcher, bf16 "
+        "cast on the host): %.1f img/s per card, %.3f ms per step; "
+        "prefetch %s; losses %s [%s]"
+        % (stats["imgs_per_s"], stats["step_ms"], feed,
+           ["%.4f" % x for x in stats["losses"]], gpu))
+    log("resnet: %s [%s]" % (json.dumps(result), gpu))
+    if not np.isfinite(stats["losses"]).all():
+        raise AssertionError("resnet host feed: non-finite loss")
+    if feed["batches"] < len(stats["losses"]):
+        raise AssertionError("resnet host feed: %d steps from %d batches"
+                             % (len(stats["losses"]), feed["batches"]))
+    del stats
+    by_path["predict_resnet"] = resnet_teacher_phase(gpu)
+    for path, counts in by_path.items():
+        if any(counts.values()):
+            raise AssertionError("%s launched flash kernels: %s"
+                                 % (path, counts))
+    return by_path
+
+
+def resnet_parity(gpu):
+    """The first step of ResNet50_vd in bf16, f32 and f64 on the same
+    weights and batch: losses and every parameter's gradient (limits
+    above); and the s2d stem vs the plain stride-2 stem on one kernel."""
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    batch = {"image": torch.randn(RESNET_BATCH, RESNET_IMAGE, RESNET_IMAGE,
+                                  3, generator=gen, device="cuda"),
+             "label": torch.randint(0, 1000, (RESNET_BATCH,), generator=gen,
+                                    device="cuda")}
+    out = {}
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        for dtype in (torch.bfloat16, torch.float32, torch.float64):
+            _, params, extra, loss_fn = resnet.create_model_and_loss(
+                dtype=dtype, space_to_depth=True, device="cuda", seed=0)
+            for name in params:
+                if name.endswith("bn3.scale"):
+                    params[name].fill_(0.25)
+            if dtype == torch.float64:
+                params = {k: v.double() for k, v in params.items()}
+                extra = {"batch_stats": {
+                    k: v.double() for k, v in extra["batch_stats"].items()}}
+            loss, _, grads = trainer._value_and_grad(
+                lambda p: loss_fn(p, extra, batch, None), params, True)
+            out[dtype] = float(loss), {k: g.double() for k, g in
+                                       grads.items()}
+            del params, extra, loss_fn, grads
+        exact = out[torch.float64]
+        rel = lambda a, b: ((a - b).norm() / b.norm()).item()
+        report = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            loss, grads = out[dtype]
+            leaves = sorted((rel(g, exact[1][n]), n) for n, g in
+                            grads.items())
+            whole = (sum(((g - exact[1][n]) ** 2).sum()
+                         for n, g in grads.items()) ** 0.5
+                     / sum((g ** 2).sum() for g in exact[1].values())
+                     ** 0.5).item()
+            report[dtype] = (abs(loss - exact[0]) / abs(exact[0]), whole,
+                             leaves[-1], leaves[len(leaves) // 2][0])
+        f32, bf16 = report[torch.float32], report[torch.bfloat16]
+        log("resnet: first step vs f64 (loss %.6f): f32 loss %.6f "
+            "(relative %.3g, limit %g), gradients all leaves %.4g, worst "
+            "leaf %.4g (%s, limit %g), median leaf %.4g; bf16 loss %.6f "
+            "(relative %.3g, limit %g), gradients all leaves %.4g and "
+            "median leaf %.4g (limit %g), worst leaf %.4g (%s, limit %g) "
+            "[%s]"
+            % (exact[0], out[torch.float32][0], f32[0],
+               RESNET_F32_LOSS_RTOL, f32[1], f32[2][0], f32[2][1],
+               RESNET_GRAD_RTOL, f32[3], out[torch.bfloat16][0], bf16[0],
+               RESNET_LOSS_RTOL, bf16[1], bf16[3], RESNET_BF16_GRAD_RTOL,
+               bf16[2][0], bf16[2][1], RESNET_BF16_LEAF_RTOL, gpu))
+        if not (f32[0] <= RESNET_F32_LOSS_RTOL
+                and f32[2][0] <= RESNET_GRAD_RTOL):
+            raise AssertionError("resnet: the f32 step disagrees with f64")
+        if not (bf16[0] <= RESNET_LOSS_RTOL
+                and bf16[1] <= RESNET_BF16_GRAD_RTOL
+                and bf16[3] <= RESNET_BF16_GRAD_RTOL
+                and bf16[2][0] <= RESNET_BF16_LEAF_RTOL):
+            raise AssertionError("resnet: the bf16 step disagrees with f64")
+        del out, exact
+        # the s2d stem against the plain stride-2 stem, same kernel
+        plain = resnet.Conv(3, 32, 3, 2, dtype=torch.float32, device="cuda")
+        s2d = resnet.S2DStemConv(32, torch.float32, "cuda")
+        with torch.no_grad():
+            plain.init_weights(torch.Generator(device="cuda").manual_seed(2))
+            s2d.kernel.copy_(plain.kernel)
+            x = batch["image"]
+            want = plain(x.permute(0, 3, 1, 2))
+            got = s2d(resnet.space_to_depth(x).permute(0, 3, 1, 2))
+        err = (got - want).abs().max().item()
+        scale = want.abs().max().item()
+        log("resnet: s2d stem vs plain stride-2 stem (f32, TF32 off) at "
+            "%s: max_abs_err %.3g of |out| max %.3f (limit %g relative) "
+            "[%s]" % (tuple(want.shape), err, scale, S2D_TOL, gpu))
+        if not err <= S2D_TOL * max(1.0, scale):
+            raise AssertionError("resnet: the s2d stem disagrees with the "
+                                 "plain one: %g" % err)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+
+
+def resnet_teacher_phase(gpu):
+    """``resnet_teacher`` (ResNet50_vd at 224, bf16, max_batch 64) serving
+    predicts of 1-64 rows through the port's RpcClient, some concurrent;
+    each reply's logits against the model's direct eval forward of the
+    same rows padded with zeros to the device batch, as the server pads
+    them. Returns the flash launches of the served requests."""
+    os.environ["EDL_TPU_DISABLE_UDS"] = "1"  # TCP on loopback only
+    max_batch = 64
+    t0 = time.monotonic()
+    # the first device batches build cuDNN's plans: a queue-wait SLO of
+    # a minute keeps the default 500 ms from shedding the concurrent wave
+    server = resnet_teacher(depth=50, image_size=RESNET_IMAGE,
+                            max_batch=max_batch, host="127.0.0.1",
+                            device="cuda",
+                            admission=AdmissionController(slo_ms=60000.0)
+                            ).start()
+    log("resnet: resnet_teacher (ResNet50_vd, 224, max_batch %d) up in "
+        "%.2fs [%s]" % (max_batch, time.monotonic() - t0, gpu))
+    client = RpcClient(server.endpoint, timeout=600.0)
+    rng = np.random.RandomState(SEED)
+    feed = lambda rows: {"image": rng.randn(
+        rows, RESNET_IMAGE, RESNET_IMAGE, 3).astype(np.float32)}
+    try:
+        client.call("predict", feed(1))
+        stats0 = client.call("stats")
+        fa.reset_launches()
+        replies, feeds, latencies = [], [], []
+        t_all = time.monotonic()
+        for rows in (1, 64, 7):                    # sequential
+            f = feed(rows)
+            t0 = time.monotonic()
+            replies.append(client.call("predict", f))
+            latencies.append(time.monotonic() - t0)
+            feeds.append(f)
+        wave = [feed(r) for r in (3, 5, 2)]        # concurrent
+        t0 = time.monotonic()
+        futs = [client.call_async("predict", f) for f in wave]
+        for f, fut in zip(wave, futs):
+            replies.append(fut.result(timeout=600))
+            latencies.append(time.monotonic() - t0)
+            feeds.append(f)
+        wall = time.monotonic() - t_all
+        launches = dict(fa.flash_attention.kernel_launches)
+        stats = client.call("stats")
+    finally:
+        client.close()
+        server.stop()
+    rows = stats["rows"] - stats0["rows"]
+    batches = stats["batches"] - stats0["batches"]
+    # the same weights as the server's: INIT_SEED, flax's initial stats
+    model = resnet.ResNet(depth=50, dtype=torch.bfloat16, device="cuda")
+    model.init_weights(torch.Generator(device="cuda").manual_seed(INIT_SEED))
+    batch_stats = resnet.init_batch_stats(model)
+    worst = 0.0
+    for f, rep in zip(feeds, replies):
+        n = len(f["image"])
+        for key in ("logits", "probs"):
+            if rep[key].shape != (n, 1000) or rep[key].dtype != np.float32:
+                raise AssertionError("%s reply shape %s dtype %s"
+                                     % (key, rep[key].shape, rep[key].dtype))
+            if not np.isfinite(rep[key]).all():
+                raise AssertionError("non-finite %s" % key)
+        sums = rep["probs"].sum(-1, dtype=np.float64)
+        if np.abs(sums - 1.0).max() > 1e-3:
+            raise AssertionError("probs rows sum to %s" % sums)
+        padded = np.zeros((max_batch, RESNET_IMAGE, RESNET_IMAGE, 3),
+                          np.float32)
+        padded[:n] = f["image"]
+        with torch.no_grad():
+            want, _ = model(torch.from_numpy(padded).cuda().to(
+                torch.bfloat16), batch_stats)
+        want = want[:n].cpu().numpy()
+        err = float(np.abs(rep["logits"] - want).max()) / max(
+            1.0, float(np.abs(want).max()))
+        worst = max(worst, err)
+    log("resnet: teacher served %d requests (%d rows) in %d device "
+        "batches, latency per request %s s, %.1f images/s; logits vs the "
+        "direct eval forward: worst %.3g relative (limit %g); flash "
+        "launches %s [%s]"
+        % (len(replies), rows, batches, ["%.3f" % x for x in latencies],
+           rows / wall, worst, TEACHER_TOL, launches, gpu))
+    if not worst <= TEACHER_TOL:
+        raise AssertionError("resnet teacher logits disagree with the "
+                             "model's eval forward: %g" % worst)
+    return launches
+
+
+def step_profile(stats, what, gpu, groups=None, ranges=()):
     """One more step of a bench run, profiled: device time by kernel and
     its share of the step's time (the device-busy share)."""
     total_us = log_profile(stats["dispatch"], what, gpu, top=10,
-                           also=("flash_", "bwd_"))
+                           also=("flash_", "bwd_"), groups=groups,
+                           ranges=ranges)
     if total_us:
         log("%s: device busy %.1f%% of the %.3f ms step [%s]"
             % (what, 100.0 * total_us / 1e3 / stats["step_ms"],
@@ -1329,12 +1634,15 @@ def time_calls(fn, reps):
     return statistics.median(device_ms), statistics.median(host_ms)
 
 
-def log_profile(fn, what, gpu, top=8, also=()):
+def log_profile(fn, what, gpu, top=8, also=(), groups=None, ranges=()):
     """torch.profiler over one call of ``fn``: device time by kernel (the
     ``top`` largest, and beyond them every kernel whose name holds one of
-    ``also``) and the host's aten op calls (nested calls included).
-    Returns the device time in microseconds (0 when none was
-    recorded)."""
+    ``also``) and the host's aten op calls (nested calls included);
+    with ``groups`` ({group: name fragments}, first match wins, the rest
+    "other") also the device time by group; with ``ranges`` (names of
+    ``record_function`` ranges) also the device time of the kernels
+    launched inside each range. Returns the device time in microseconds
+    (0 when none was recorded)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1344,8 +1652,10 @@ def log_profile(fn, what, gpu, top=8, also=()):
         torch.cuda.synchronize()
     averages = prof.key_averages()
     ops = sum(e.count for e in averages if e.key.startswith("aten::"))
+    # a range's twin on the device timeline is no kernel
     kernels = [e for e in averages if e.device_type == DeviceType.CUDA
-               and e.self_device_time_total]
+               and e.self_device_time_total
+               and not getattr(e, "is_user_annotation", False)]
     total_us = sum(e.self_device_time_total for e in kernels)
     if not total_us:
         log("%s: torch.profiler recorded no device time (%d aten op calls "
@@ -1360,6 +1670,31 @@ def log_profile(fn, what, gpu, top=8, also=()):
         if i < top or any(name in e.key for name in also):
             log("  %8.3f ms x%-4d %s" % (e.self_device_time_total / 1e3,
                                           e.count, e.key[:90]))
+    if groups:
+        by_group = {}
+        for e in kernels:
+            group = next((g for g, frags in groups.items()
+                          if any(f in e.key for f in frags)), "other")
+            us, n = by_group.get(group, (0, 0))
+            by_group[group] = us + e.self_device_time_total, n + e.count
+        log("%s: device time by group: %s [%s]" % (what, ", ".join(
+            "%s %.3f ms (%.1f%%, %d launches)"
+            % (g, us / 1e3, 100.0 * us / total_us, n)
+            for g, (us, n) in sorted(by_group.items(),
+                                     key=lambda kv: -kv[1][0])), gpu))
+    if ranges:
+        spans = {name: [0.0, 0] for name in ranges}
+        for e in prof.events():
+            if e.device_type == DeviceType.CPU and e.name in spans:
+                spans[e.name][0] += e.device_time_total
+                spans[e.name][1] += 1
+        inside = sum(us for us, _ in spans.values())
+        log("%s: device time inside ranges: %s; together %.3f ms (%.1f%%) "
+            "[%s]" % (what, ", ".join(
+                "%s %.3f ms (%.1f%%, %d ranges)"
+                % (name, us / 1e3, 100.0 * us / total_us, n)
+                for name, (us, n) in spans.items()),
+                inside / 1e3, 100.0 * inside / total_us, gpu))
     return total_us
 
 
@@ -1449,6 +1784,7 @@ def main():
     by_path = {"predict": slice_phase(gpu)}
     by_path.update(decode_phase(gpu))
     by_path.update(train_phase(gpu))
+    by_path.update(resnet_phase(gpu))
     repo = os.path.dirname(os.path.abspath(__file__))
     # each kernel's numbers at its main path's shape: sm90 at the served
     # predict (bf16 causal, b4); tf32x3 at lm_teacher's longest prefill,

@@ -1,28 +1,43 @@
-"""Training-throughput bench of the port: ``bench.py``'s LM loop (``--model
-gpt|bert``) on one CUDA card.
+"""Training-throughput bench of the port: ``bench.py``'s ResNet50_vd loop
+(``--model resnet``, the default) and its LM loop (``--model gpt|bert``)
+on one CUDA card.
 
+    python -m edl_tpu_torch.bench                       # ResNet50_vd
+    python -m edl_tpu_torch.bench --feed host           # host-fed
     python -m edl_tpu_torch.bench --model gpt --flash
     python -m edl_tpu_torch.bench --model bert --flash [--no-remat]
 
 Prints ONE JSON line, the JAX bench's: ``{"metric", "value", "unit",
-"vs_baseline"}`` with its metric names and suffixes
-(``gpt2s_train_tokens_per_sec_per_chip[_seqN][_bN][_noremat][_flash]
-[_slowstep][_suspect]``, unit ``tok/s/chip``, vs_baseline 0.0: the
-reference published no LM number). Before it, on stderr, the step time,
-the implied TFLOP/s and the MFU against the H100's 989 TFLOP/s bf16
-dense peak.
+"vs_baseline"}`` with its metric names and suffixes. ResNet:
+``resnet50_vd_train_imgs_per_sec_per_chip[_suspect][_hostfed][_scanK]
+[_bnK][_bN][_slowstep]``, unit ``img/s/chip``, ``vs_baseline`` = img/s
+over 228.5, the reference's published per-GPU figure (1828 img/s on 8
+V100s). LM: ``gpt2s_train_tokens_per_sec_per_chip[_seqN][_bN]
+[_noremat][_flash][_slowstep][_suspect]``, unit ``tok/s/chip``,
+vs_baseline 0.0 (the reference published no LM number). Before it, on
+stderr, the step time, the implied TFLOP/s and the MFU against the
+H100's 989 TFLOP/s bf16 dense peak.
 
-What it keeps of the JAX bench: bf16 activations over f32 params,
-``adamw(1e-4)``, random ids from a fixed seed staged on the device
-once, the guarded timed loop (a slow step becomes a measurement, not a
-hang), the FLOP count ``6 N + 12 L d s`` per token and the ``_suspect``
-gate at 1.25x the peak. What it changes: one card and no mesh (the mesh
-comes with ROADMAP A12), CUDA events in place of
-``block_until_ready``, the H100's peak in place of v5e's 197 TFLOP/s.
-``flash=False`` is dense attention, as in JAX; ``--flash`` runs the
-CUDA flash kernels forward and backward (off CUDA it is ignored, as the
-JAX bench ignores it off the TPU). ``--model resnet`` comes with slice 4
-(ROADMAP A13).
+What it keeps of the JAX bench: bf16 activations over f32 params (and
+f32 BN statistics), ResNet50_vd at 224 with ``sgd(0.1, momentum=0.9)``
+and the space-to-depth stem by default, ``--steps_per_call`` (K steps
+per call, ``make_multi_step``), ``--bn_stats_every`` with its floor of
+16 on the statistics batch, the feeds ``device`` (random images staged
+on the device once) and ``host`` (``synthetic_pipeline`` through
+``DevicePrefetcher``, cast to bf16 on the host), ``adamw(1e-4)`` and
+random ids for the LM loop, the guarded timed loop (a slow step becomes
+a measurement, not a hang) and the ``_suspect`` gate at 1.25x the peak.
+What it changes: one card and no mesh (the mesh comes with ROADMAP
+A12), CUDA events in place of ``block_until_ready``, no retry
+subprocesses or CPU fallback (without a card it raises), the H100's
+peak in place of v5e's 197 TFLOP/s, and ResNet's FLOP count: 2 per
+multiply-add of the convs and the dense head as the port runs them
+(``resnet_flops_per_image``, the s2d stem's zero taps included), times 3
+for a training step, in place of the v5e XLA cost model's 25 GFLOP per
+image. ``--feed native`` (the C++ JPEG loader) is not ported (ROADMAP
+A18). ``flash=False`` is dense attention, as in JAX; ``--flash`` runs
+the CUDA flash kernels forward and backward (off CUDA it is ignored, as
+the JAX bench ignores it off the TPU).
 """
 
 import argparse
@@ -39,10 +54,12 @@ from edl_tpu_torch.utils.device import resolve_device
 
 #: the H100 SXM's dense bf16 tensor-core peak (NVIDIA data sheet)
 PEAK_BF16_FLOPS = 989e12
+#: the reference's headline: ResNet50_vd at 1828 img/s on 8 V100s
+BASELINE_IMGS_PER_SEC_PER_CHIP = 1828.0 / 8.0
 
 # per-model CLI defaults, used both to fill unset args and to name
 # non-default configurations in the metric
-MODEL_DEFAULT_BATCH = {"gpt": 8, "bert": 32}
+MODEL_DEFAULT_BATCH = {"gpt": 8, "bert": 32, "resnet": 128}
 MODEL_DEFAULT_SEQ = {"gpt": 1024, "bert": 512}
 
 
@@ -109,6 +126,145 @@ def _guarded_timed_loop(dispatch, iters, device):
     dt = stop()
     slowstep = truncated and (dt / iters) * requested_iters > loop_budget_s
     return iters, dt, slowstep
+
+
+def run(batch_per_chip=128, image_size=224, warmup=3, iters=20, s2d=True,
+        feed="device", steps_per_call=1, bn_stats_every=1, device=None,
+        stats=None):
+    """ResNet50_vd training throughput (img/s on one card): the JAX
+    bench's ``run``. ``feed``: "device" stages one random bf16 batch on
+    the device once (the compute rate); "host" pulls
+    ``synthetic_pipeline`` batches through ``DevicePrefetcher`` every
+    step, cast to bf16 on the host (the rate a real loop sees); "native"
+    is not ported. ``stats``, if a dict, receives step ms, img/s, losses,
+    FLOPs per image, implied TFLOP/s, MFU, peak memory, the prefetcher's
+    ``stats()`` (host feed) and ``dispatch``, a function that runs one
+    more call of the same state (for a profile)."""
+    from edl_tpu_torch.models import resnet
+    from edl_tpu_torch.runtime.trainer import make_multi_step
+
+    if feed == "native":
+        raise NotImplementedError(
+            "--feed native (the C++ JPEG loader on real images) is not "
+            "ported to edl_tpu_torch (ROADMAP A18)")
+    if feed not in ("device", "host"):
+        raise ValueError("feed must be device or host, got %r" % feed)
+    if feed != "device" and steps_per_call > 1:
+        raise ValueError("steps_per_call measures the pure device rate and "
+                         "skips the per-step feed; use it with feed=device")
+    device = resolve_device(device)
+    log("bench: 1 card (%s), batch %d, image %d, s2d=%s, feed=%s, "
+        "steps_per_call=%d, bn_stats_every=%d"
+        % (torch.cuda.get_device_name(device) if device.type == "cuda"
+           else device.type, batch_per_chip, image_size, s2d, feed,
+           steps_per_call, bn_stats_every))
+    model_kw = dict(depth=50, num_classes=1000, vd=True,
+                    space_to_depth=s2d, bn_stats_every=bn_stats_every)
+    model, params, extra, loss_fn = resnet.create_model_and_loss(
+        dtype=torch.bfloat16, device=device, **model_kw)
+    tx = optim.sgd(0.1, momentum=0.9)
+    # the same step the trainer runs (make_train_step), K per call
+    state = make_train_state(params, tx, extra)
+    if steps_per_call > 1:
+        step = make_multi_step(loss_fn, tx, steps_per_call, has_aux=True)
+    else:
+        step = make_train_step(loss_fn, tx, has_aux=True)
+
+    prefetcher = None
+    if feed == "host":
+        from edl_tpu_torch.data.input_pipeline import synthetic_pipeline
+        from edl_tpu_torch.data.prefetch import DevicePrefetcher
+
+        def to_bf16(b):
+            return {"image": torch.from_numpy(b["image"]).to(torch.bfloat16),
+                    "label": b["label"]}
+
+        prefetcher = DevicePrefetcher(
+            synthetic_pipeline(batch_per_chip, image_size=image_size),
+            device, size=2, transform=to_bf16)
+        next_batch = lambda: next(prefetcher)
+    else:
+        gen = torch.Generator(device=device).manual_seed(0)
+        staged = {
+            "image": torch.randn(batch_per_chip, image_size, image_size, 3,
+                                 generator=gen, device=device,
+                                 dtype=torch.bfloat16),
+            "label": torch.randint(0, 1000, (batch_per_chip,),
+                                   generator=gen, device=device,
+                                   dtype=torch.int32),
+        }
+        if steps_per_call > 1:
+            staged = {k: v.expand((steps_per_call,) + v.shape)
+                      for k, v in staged.items()}
+        next_batch = lambda: staged
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+
+    losses = []
+
+    def dispatch():
+        nonlocal state
+        state, loss = step(state, next_batch(), None)
+        losses.extend(loss.reshape(-1))
+        return loss
+
+    try:
+        log("warmup (%d steps)..." % warmup)
+        t0 = time.perf_counter()
+        for _ in range(warmup):
+            dispatch()
+        _block(losses[-1] if losses else None)
+        if losses:
+            log("warmup done in %.1fs (loss=%.3f)"
+                % (time.perf_counter() - t0, float(losses[-1])))
+        iters, dt, guard_fired = _guarded_timed_loop(dispatch, iters, device)
+    finally:
+        # a failed run must not leave the prefetch thread holding
+        # device batches
+        if prefetcher is not None:
+            prefetcher.close()
+    ms_per_step = 1000 * dt / (iters * steps_per_call)
+    per_chip = batch_per_chip * iters * steps_per_call / dt
+    log("throughput: %.1f img/s per card (%.3f ms/step)"
+        % (per_chip, ms_per_step))
+    # physics gate: the port's own count (see the module docstring)
+    flops_per_image = 3 * resnet.flops_per_image(image_size, **model_kw)
+    implied_tflops = per_chip * flops_per_image / 1e12
+    mfu = implied_tflops * 1e12 / PEAK_BF16_FLOPS
+    log("implied %.1f TFLOP/s per card (%.2f GFLOP per image), MFU %.4f "
+        "of the H100's %.0f TFLOP/s bf16"
+        % (implied_tflops, flops_per_image / 1e9, mfu,
+           PEAK_BF16_FLOPS / 1e12))
+    suspect = implied_tflops * 1e12 > PEAK_BF16_FLOPS * 1.25
+    if suspect:
+        log("WARNING: implied TFLOP/s exceeds the H100's physical peak — "
+            "marking metric _suspect")
+    metric = "resnet50_vd_train_imgs_per_sec_per_chip"
+    if suspect:
+        metric += "_suspect"
+    if feed == "host":
+        metric += "_hostfed"
+    if steps_per_call > 1:
+        metric += "_scan%d" % steps_per_call
+    if bn_stats_every > 1:
+        metric += "_bn%d" % bn_stats_every
+    if batch_per_chip != MODEL_DEFAULT_BATCH["resnet"]:
+        metric += "_b%d" % batch_per_chip
+    if guard_fired:
+        metric += "_slowstep"
+    if stats is not None:
+        stats.update(
+            step_ms=ms_per_step, iters=iters, seconds=dt,
+            imgs_per_s=per_chip, implied_tflops=implied_tflops, mfu=mfu,
+            flops_per_image=flops_per_image,
+            losses=[float(x) for x in losses], dispatch=dispatch,
+            prefetch=prefetcher.stats() if prefetcher is not None else None,
+            peak_bytes=torch.cuda.max_memory_allocated(device)
+            if device.type == "cuda" else None)
+    return {"metric": metric, "value": round(per_chip, 1),
+            "unit": "img/s/chip",
+            "vs_baseline": round(per_chip / BASELINE_IMGS_PER_SEC_PER_CHIP,
+                                 3)}
 
 
 def _run_lm(kind, batch_per_chip, seq_len, warmup, iters, tiny, flash,
@@ -237,24 +393,41 @@ def run_bert(batch_per_chip=32, seq_len=512, warmup=3, iters=20,
 def _build_parser():
     ap = argparse.ArgumentParser(prog="python -m edl_tpu_torch.bench")
     ap.add_argument("--model", choices=("resnet", "gpt", "bert"),
-                    default="gpt",
-                    help="gpt = the LM surface (tok/s, GPT-2-small "
+                    default="resnet",
+                    help="resnet = the headline (img/s, ResNet50_vd @ "
+                         "224); gpt = the LM surface (tok/s, GPT-2-small "
                          "shape); bert = the encoder surface (tok/s, "
-                         "bert-base @ seq 512); resnet is not ported yet")
+                         "bert-base @ seq 512)")
     ap.add_argument("--batch_per_chip", type=int, default=None,
-                    help="default: 8 (gpt) / 32 (bert)")
+                    help="default: 128 (resnet) / 8 (gpt) / 32 (bert)")
     ap.add_argument("--iters", type=int, default=20)
     ap.add_argument("--warmup", type=int, default=3)
+    ap.add_argument("--image_size", type=int, default=224)
     ap.add_argument("--seq_len", type=int, default=None,
                     help="sequence length (default: 1024 gpt / 512 bert)")
     ap.add_argument("--flash", action="store_true",
-                    help="the CUDA flash-attention kernels, forward and "
-                         "backward (ignored off CUDA)")
+                    help="gpt/bert: the CUDA flash-attention kernels, "
+                         "forward and backward (ignored off CUDA)")
     ap.add_argument("--remat", action=argparse.BooleanOptionalAction,
                     default=True,
-                    help="non-tiny: per-layer activation recompute")
+                    help="gpt/bert non-tiny: per-layer activation "
+                         "recompute")
     ap.add_argument("--gpt_tiny", action="store_true",
-                    help="the tiny test-size model of the family")
+                    help="gpt/bert: the tiny test-size model of the family")
+    ap.add_argument("--s2d", dest="s2d", action="store_true")
+    ap.add_argument("--no-s2d", dest="s2d", action="store_false")
+    ap.set_defaults(s2d=True)
+    ap.add_argument("--feed", choices=("device", "host", "native"),
+                    default="device",
+                    help="device = staged-once compute rate; host = "
+                         "synthetic pipeline fed per step; native is not "
+                         "ported (ROADMAP A18)")
+    ap.add_argument("--steps_per_call", type=int, default=1,
+                    help="K train steps per call (make_multi_step)")
+    ap.add_argument("--bn_stats_every", type=int, default=1,
+                    help="BN train statistics from every k-th batch row "
+                         "(4 at batch 128 = the reference's per-GPU "
+                         "stats batch of 32)")
     ap.add_argument("--device", default=None,
                     help="default: cuda (raises without a card); cpu for "
                          "a schema run")
@@ -262,20 +435,40 @@ def _build_parser():
 
 
 def main(argv=None):
-    args = _build_parser().parse_args(argv)
-    if args.model == "resnet":
-        raise NotImplementedError(
-            "--model resnet is not ported to edl_tpu_torch yet (slice 4: "
-            "ResNet50_vd training, ROADMAP A10-A13)")
+    ap = _build_parser()
+    args = ap.parse_args(argv)
     if args.batch_per_chip is None:
         args.batch_per_chip = 2 if args.gpt_tiny else \
             MODEL_DEFAULT_BATCH[args.model]
-    if args.seq_len is None:
-        args.seq_len = MODEL_DEFAULT_SEQ[args.model]
-    run = run_gpt if args.model == "gpt" else run_bert
-    result = run(batch_per_chip=args.batch_per_chip, seq_len=args.seq_len,
-                 warmup=args.warmup, iters=args.iters, tiny=args.gpt_tiny,
-                 flash=args.flash, remat=args.remat, device=args.device)
+    if args.steps_per_call < 1:
+        ap.error("--steps_per_call must be >= 1")
+    if args.bn_stats_every < 1:
+        ap.error("--bn_stats_every must be >= 1")
+    if args.model == "resnet" and args.bn_stats_every > 1 \
+            and args.batch_per_chip // args.bn_stats_every < 16:
+        # the JAX package's r4 gate experiment: 8-sample BN statistics
+        # (batch 32 / every 4) cost real accuracy (0.8 vs 0.85+); refuse
+        # stats batches below half the gated 32
+        ap.error("--bn_stats_every %d at batch %d leaves a BN stats "
+                 "batch of %d (< 16); subset statistics this small "
+                 "measurably hurt convergence"
+                 % (args.bn_stats_every, args.batch_per_chip,
+                    args.batch_per_chip // args.bn_stats_every))
+    if args.model == "resnet":
+        result = run(batch_per_chip=args.batch_per_chip,
+                     image_size=args.image_size, warmup=args.warmup,
+                     iters=args.iters, s2d=args.s2d, feed=args.feed,
+                     steps_per_call=args.steps_per_call,
+                     bn_stats_every=args.bn_stats_every,
+                     device=args.device)
+    else:
+        if args.seq_len is None:
+            args.seq_len = MODEL_DEFAULT_SEQ[args.model]
+        lm = run_gpt if args.model == "gpt" else run_bert
+        result = lm(batch_per_chip=args.batch_per_chip,
+                    seq_len=args.seq_len, warmup=args.warmup,
+                    iters=args.iters, tiny=args.gpt_tiny, flash=args.flash,
+                    remat=args.remat, device=args.device)
     print(json.dumps(result), flush=True)
     return 0
 

@@ -17,9 +17,8 @@ With a decode engine (``decode_engine=``, as :func:`lm_teacher` builds
 it) the server also serves the autoregressive plane: ``lm_generate``,
 ``lm_submit`` and ``lm_poll`` (serve/decode_engine.py).
 
-The model builders run on CUDA unless the caller passes
-``device="cpu"``. ``gpt_teacher`` and ``lm_teacher`` are ported; the
-ResNet teachers come with a later slice.
+The model builders (``resnet_teacher``, ``gpt_teacher``,
+``lm_teacher``) run on CUDA unless the caller passes ``device="cpu"``.
 """
 
 import argparse
@@ -31,7 +30,7 @@ import time
 import numpy as np
 import torch
 
-from edl_tpu_torch.models import gpt
+from edl_tpu_torch.models import gpt, resnet
 from edl_tpu_torch.obs import metrics as obs_metrics
 from edl_tpu_torch.ops import quant
 from edl_tpu_torch.robustness import faults
@@ -582,6 +581,54 @@ def nop_teacher(fetch_specs, max_batch=128, host="0.0.0.0", port=0,
                          **kwargs)
 
 
+def resnet_teacher(depth=50, num_classes=1000, image_size=224,
+                   max_batch=64, host="0.0.0.0", port=0, feed_bf16=True,
+                   groups=1, base_width=64, vd=True, params=None,
+                   batch_stats=None, device=None, **kwargs):
+    """An image teacher: ResNet/ResNeXt(depth) eval logits + softmax
+    over the running statistics (groups=32, base_width=16, vd=False =
+    the reference's distill teacher ResNeXt101_32x16d_wsl architecture).
+
+    ``params`` and ``batch_stats``: a trained flax ResNet's trees (nested
+    dicts of arrays, as the JAX package's model holds them) make it a
+    real teacher; ``None`` serves random weights from ``INIT_SEED`` and
+    flax's initial statistics (mean 0, var 1) as a shape-true stand-in.
+    ``feed_bf16`` casts the image to bf16 on the host, as the JAX
+    package's teacher does: half the bytes go to the device, and the
+    logits are the same (the model computes in bf16 either way).
+    ``device`` as for :func:`gpt_teacher`."""
+    device = resolve_device(device)
+    model = resnet.ResNet(depth=depth, num_classes=num_classes, vd=vd,
+                          groups=groups, base_width=base_width,
+                          dtype=torch.bfloat16, device=device)
+    if params is None:
+        model.init_weights(
+            torch.Generator(device=device).manual_seed(INIT_SEED))
+        stats = resnet.init_batch_stats(model)
+    else:
+        state, stats = resnet.params_from_flax(params, batch_stats)
+        model.load_state_dict(state)
+        stats = {k: v.to(device) for k, v in stats.items()}
+    model.requires_grad_(False)
+
+    def predict(feed):
+        image = torch.from_numpy(np.asarray(feed["image"], np.float32))
+        if feed_bf16:
+            image = image.to(torch.bfloat16)
+        with torch.no_grad():
+            logits, _ = model(image.to(device), stats, train=False)
+            probs = torch.softmax(logits, dim=-1)
+            return {"logits": logits.cpu().numpy(),
+                    "probs": probs.cpu().numpy()}
+
+    return TeacherServer(
+        predict,
+        feed_specs={"image": ([image_size, image_size, 3], "<f4")},
+        fetch_specs={"logits": ([num_classes], "<f4"),
+                     "probs": ([num_classes], "<f4")},
+        max_batch=max_batch, host=host, port=port, **kwargs)
+
+
 def _gpt_state(device, params, quantize, **size):
     """(model, state) of a ``Gpt`` teacher on ``device``: the weights
     from a flax ``params`` tree or, when None, random from
@@ -685,20 +732,33 @@ def lm_teacher(num_layers=2, d_model=64, num_heads=4, mlp_dim=128,
 
 def main():
     p = argparse.ArgumentParser("edl_tpu_torch teacher server")
-    p.add_argument("--model", default="nop", choices=["nop", "gpt"],
-                   help="nop: zeros; gpt: the causal-LM teacher. The "
-                   "resnet/resnext teachers are not ported yet; "
+    p.add_argument("--model", default="nop",
+                   choices=["nop", "resnet", "resnext", "gpt"],
+                   help="nop: zeros; resnet: ResNet(depth)_vd; resnext: "
+                   "ResNeXt101_32x16d; gpt: the causal-LM teacher. "
                    "lm_teacher is Python-API-only, as in edl_tpu")
     p.add_argument("--port", type=int, default=0)
     p.add_argument("--device", default=None,
                    help="torch device for the model (default: cuda)")
+    p.add_argument("--depth", type=int, default=None,
+                   help="resnet depth (default 50; resnext default 101)")
     p.add_argument("--num_classes", type=int, default=1000)
     p.add_argument("--image_size", type=int, default=224)
     p.add_argument("--max_batch", type=int, default=64)
     p.add_argument("--vocab_size", type=int, default=256)
     p.add_argument("--seq_len", type=int, default=32)
     args = p.parse_args()
-    if args.model == "gpt":
+    if args.model == "resnet":
+        server = resnet_teacher(args.depth or 50, args.num_classes,
+                                args.image_size, args.max_batch,
+                                port=args.port, device=args.device)
+    elif args.model == "resnext":
+        # the reference's distill teacher config: ResNeXt101_32x16d
+        server = resnet_teacher(args.depth or 101, args.num_classes,
+                                args.image_size, args.max_batch,
+                                port=args.port, groups=32, base_width=16,
+                                vd=False, device=args.device)
+    elif args.model == "gpt":
         server = gpt_teacher(vocab_size=args.vocab_size,
                              seq_len=args.seq_len,
                              max_batch=args.max_batch, port=args.port,

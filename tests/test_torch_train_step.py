@@ -437,14 +437,15 @@ def test_bench_lm_loop_schema_on_cpu(kind, flash, capsys):
 
 
 
-def test_bench_cli(capsys):
+def test_bench_cli(capsys, monkeypatch):
     """``python -m edl_tpu_torch.bench`` prints one JSON line; ``--model
-    resnet`` waits for slice 4."""
+    resnet`` (the default) runs on the card, and without one raises."""
     assert tbench.main(["--model", "bert", "--gpt_tiny", "--device", "cpu",
                         "--seq_len", "16", "--iters", "1", "--warmup",
                         "0"]) == 0
     line = capsys.readouterr().out.strip().splitlines()[-1]
     assert json.loads(line)["metric"] == \
         "bert_tiny_train_tokens_per_sec_per_chip_seq16"
-    with pytest.raises(NotImplementedError, match="slice 4"):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         tbench.main(["--model", "resnet"])
