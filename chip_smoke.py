@@ -92,11 +92,37 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    attention: each must launch no flash kernel. Prints img/s, step ms,
    FLOPs per image, implied TFLOP/s, MFU, peak memory and a profile of
    one step (top kernels, device time by kind, BatchNorm's own device
-   time from its profiler ranges, the device-busy share, aten calls).
+   time from its profiler ranges, the device-busy share, aten calls);
+7. elastic: the checkpoint engine and ``ElasticTrainer`` on the card.
+   (a) ResNet50_vd as the resnet phase trains it, with sgd over
+   ``lr_schedules``' warm-up and cosine, and (b) GPT-2s with flash and
+   adamw, each through an ``ElasticTrainer``: 2 epochs of 3 steps with
+   epoch-end saves, once sync (dense npz) and once async (the stream
+   engine: pinned snapshot on a side stream, background persist), 4
+   steps more (with the async persist in flight) and 4 after it; a
+   fresh trainer on the same directory resumes, every leaf of its state
+   (params, momentum or adamw's count, mu and nu, BN statistics, step)
+   must equal the saved one bit for bit, and its next 4 steps must give
+   the uninterrupted run's losses and state bit for bit. GPT-2s's steps
+   must launch the sm90 forward and backward kernels as the train
+   phase's do, ResNet none. First a ResNet step repeated from one state
+   says whether cuDNN's default algorithms repeat it bit for bit; only
+   where they do not are the ResNet continuations and the drill held to
+   ``RESUME_RTOL`` instead, naming the leaves that differ.
+   (c) the drill: ``python -m edl_tpu_torch.examples.resnet.train`` in a
+   subprocess, SIGTERMed mid-epoch, must exit 101 with an emergency
+   checkpoint at its current step; its restart must resume at that step
+   and exit 0, and its final state must match the same batches run in
+   this process without a stop. A ``save_async`` followed at once by an
+   in-place write to every leaf must restore the values at the save.
+   (d) ``tools/ckpt_bench``'s CRC-gated
+   round trip of a 1 GB state. Prints save, snapshot, persist and
+   restore seconds, bytes and GB/s, and step ms with and without a
+   persist in flight.
 
 Prints a ``kernels`` JSON line (the three forward kernels, with and
 without lse, and the backward's five, launches by path, the ResNet
-paths' zeros included), the card's name and power limit, and last
+and elastic paths included), the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``. Exits
 non-zero, printing no result, when CUDA is unavailable.
 """
@@ -104,9 +130,12 @@ non-zero, printing no result, when CUDA is unavailable.
 import contextlib
 import json
 import os
+import shutil
+import signal
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -120,7 +149,8 @@ from edl_tpu_torch.models import gpt, resnet
 from edl_tpu_torch.models.gpt import Gpt
 from edl_tpu_torch.ops import flash_attention as fa
 from edl_tpu_torch.rpc.client import RpcClient
-from edl_tpu_torch.runtime import trainer
+from edl_tpu_torch.runtime import checkpoint as checkpoint_mod
+from edl_tpu_torch.runtime import lr_schedules, optim, trainer
 from edl_tpu_torch.serve.admission import AdmissionController
 from edl_tpu_torch.serve.decode_engine import DecodeEngine, _prefill_bucket
 
@@ -238,6 +268,39 @@ S2D_TOL = 1e-5
 # padded as the server pads them (zeros), relative to |logits| max: one
 # bf16 ulp, for a batch position that changes the conv algorithm's order
 TEACHER_TOL = 2.0 ** -7
+# the elastic phase: ElasticTrainer over ResNet50_vd as the bench trains
+# it (1000 classes, b128 x 224, s2d, bf16 over f32 params and BN
+# statistics) with sgd(momentum 0.9) over lr_schedules' warm-up and
+# cosine, and over GPT-2s with flash (b8 x 1024, remat, adamw(1e-4)):
+# ELASTIC_EPOCHS epochs of ELASTIC_STEPS steps with epoch-end saves (sync,
+# then async), ELASTIC_CONT steps more, then a fresh trainer resumes on
+# the same directory and takes the same ELASTIC_CONT steps
+ELASTIC_EPOCHS, ELASTIC_STEPS, ELASTIC_CONT = 2, 3, 4
+ELASTIC_LR, ELASTIC_WARMUP = 0.1, 3
+GPT_BATCH = 8
+# a resumed run's next steps against the uninterrupted run's, from a
+# bit-equal state: bit for bit, GPT-2s always and ResNet50_vd (here and
+# in the drill) wherever its step repeats bit for bit from one state with
+# cuDNN's default algorithms (determinism_probe); where it does not, each
+# loss within RESUME_RTOL relative and each leaf of the state within
+# relative Frobenius RESUME_RTOL, naming the leaves the probe saw differ
+# (a step's nondeterminism is a summation order: ~1e-7 relative per f32
+# sum, which a few bf16 steps grow but keep far under 1e-3)
+RESUME_RTOL = 1e-3
+# the drill: the port's examples/resnet entry point in subprocesses
+# (ResNet50_vd in bf16, 100 classes, b64 x 128, 2 epochs of 4 steps, a
+# line per step); SIGTERM once epoch 1's first step is printed
+DRILL_ARGS = ["--depth", "50", "--dtype", "bf16", "--num_classes", "100",
+              "--total_batch_size", "64", "--image_size", "128",
+              "--epochs", "2", "--steps_per_epoch", "4", "--fetch_steps",
+              "1", "--warmup_epochs", "1"]
+DRILL_KILL_AFTER = "epoch 1 step 1 "
+DRILL_TIMEOUT = 300
+# tools/ckpt_bench's CRC-gated round trip at a GB-scale state
+CKPT_BENCH_MB = 1024
+# the async snapshot under a step that writes in place: INPLACE_LEAVES
+# f32 leaves of INPLACE_MB each
+INPLACE_LEAVES, INPLACE_MB = 4, 128
 # a ResNet step's kernels by kind, from their names (first match wins):
 # the pools, PyTorch's reductions (BN statistics and their backward
 # sums), its elementwise kernels (BN, ReLU, adds, casts, the optimizer),
@@ -1476,6 +1539,466 @@ def resnet_teacher_phase(gpu):
     return launches
 
 
+def flat_state(state):
+    """{key: tensor} of a train state, keyed as the checkpoint is."""
+    return dict(checkpoint_mod._flatten(state))
+
+
+def state_bytes(state):
+    return sum(t.numel() * t.element_size()
+               for t in flat_state(state).values())
+
+
+def clone_state(state):
+    return {k: v.detach().clone() for k, v in flat_state(state).items()}
+
+
+def hold_bit_equal(got, want, what):
+    """Every leaf of ``got`` (a train state) equal to ``want`` (a flat
+    state) bit for bit, in dtype and shape."""
+    got = flat_state(got)
+    if sorted(got) != sorted(want):
+        raise AssertionError("%s: keys differ: %s" % (
+            what, sorted(set(got) ^ set(want))[:5]))
+    bad = [k for k in want if got[k].dtype != want[k].dtype
+           or got[k].shape != want[k].shape
+           or not torch.equal(got[k].to(want[k].device), want[k])]
+    if bad:
+        raise AssertionError("%s: %d of %d leaves differ, e.g. %s"
+                             % (what, len(bad), len(want), bad[:3]))
+    return len(want)
+
+
+def hold_continuation(got_losses, want_losses, got_state, want, what,
+                      nondeterministic=None):
+    """A resumed run's next steps against the uninterrupted run's: bit for
+    bit, or within RESUME_RTOL where ``nondeterministic`` says why the
+    step cannot repeat. Returns (bitwise, worst loss relative error,
+    worst leaf relative Frobenius)."""
+    got = flat_state(got_state)
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(got_losses,
+                                                       want_losses))
+    worst = 0.0
+    for key, ref in want.items():
+        g = got[key].to(ref.device)
+        if torch.equal(g, ref):
+            continue
+        diff = (g.double() - ref.double()).norm().item()
+        worst = max(worst, diff / max(ref.double().norm().item(), 1e-30))
+    bitwise = got_losses == want_losses and worst == 0.0
+    if not bitwise and (nondeterministic is None
+                        or loss_err > RESUME_RTOL or worst > RESUME_RTOL):
+        raise AssertionError(
+            "%s: resumed steps' losses %s vs %s (worst %.3g relative), "
+            "state worst leaf %.3g relative Frobenius (limit %s)"
+            % (what, got_losses, want_losses, loss_err, worst,
+               "bit for bit" if nondeterministic is None else
+               "%g: %s" % (RESUME_RTOL, nondeterministic)))
+    return bitwise, loss_err, worst
+
+
+def timed_steps(tr, batch, first, n, handle=None):
+    """``n`` steps from batch index ``first``: losses and ms each (the
+    loss read ends each step), and for each whether ``handle``'s persist
+    was still running when the step ended."""
+    losses, ms, persisting = [], [], []
+    for i in range(first, first + n):
+        t0 = time.perf_counter()
+        losses.append(float(tr.train_step(batch(ELASTIC_EPOCHS, i))))
+        ms.append((time.perf_counter() - t0) * 1e3)
+        persisting.append(handle is not None and not handle.done())
+    return losses, ms, persisting
+
+
+def manifest_nbytes(directory, version):
+    with open("%s/v_%08d/MANIFEST" % (directory, version)) as f:
+        return json.load(f)["nbytes"]
+
+
+def elastic_round_trip(make, batch, what, async_save, gpu,
+                       nondeterministic=None):
+    """ELASTIC_EPOCHS epochs of ELASTIC_STEPS steps with epoch-end saves,
+    ELASTIC_CONT steps more (with ``async_save`` the last save's persist
+    runs meanwhile) and ELASTIC_CONT with no persist in flight; then a
+    fresh trainer on the same directory resumes, its state must be the
+    saved one bit for bit, and its ELASTIC_CONT steps must give the
+    uninterrupted run's (``hold_continuation``). Returns the numbers."""
+    directory = tempfile.mkdtemp(prefix="elastic_")
+    mode = "async" if async_save else "sync"
+    try:
+        tr = make(directory, async_save)
+        for epoch in range(ELASTIC_EPOCHS):
+            tr.begin_epoch(epoch)
+            for i in range(ELASTIC_STEPS):
+                tr.train_step(batch(epoch, i))
+            torch.cuda.synchronize()
+            if epoch == ELASTIC_EPOCHS - 1:
+                saved = clone_state(tr.train_state)
+            t0 = time.perf_counter()
+            tr.end_epoch(save=True)
+            save_s = time.perf_counter() - t0
+        version = tr.global_step
+        # the engine's handle of the last async save (None when sync)
+        handle = tr._ckpt._inflight if async_save else None
+        cont, inflight_ms, persisting = timed_steps(tr, batch, 0,
+                                                    ELASTIC_CONT, handle)
+        after = clone_state(tr.train_state)
+        tr._ckpt.drain()
+        if handle is not None:
+            handle.result()  # a failed persist raises here
+        _, quiet_ms, _ = timed_steps(tr, batch, ELASTIC_CONT, ELASTIC_CONT)
+        nbytes = (handle.nbytes if handle is not None
+                  else manifest_nbytes(directory, version))
+        tr.close()
+        del tr
+        torch.cuda.empty_cache()
+
+        fresh = make(directory, False)
+        t0 = time.perf_counter()
+        if not fresh.resume():
+            raise AssertionError("%s: nothing to resume" % what)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        if fresh.global_step != version:
+            raise AssertionError("%s: resumed at step %d, saved %d"
+                                 % (what, fresh.global_step, version))
+        leaves = hold_bit_equal(fresh.train_state, saved,
+                                "%s %s restore" % (what, mode))
+        again, _, _ = timed_steps(fresh, batch, 0, ELASTIC_CONT)
+        bitwise, loss_err, leaf_err = hold_continuation(
+            again, cont, fresh.train_state, after,
+            "%s %s continuation" % (what, mode), nondeterministic)
+        fresh.close()
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+    out = {"mode": mode, "version": version, "bytes": nbytes,
+           "leaves": leaves, "save_s": save_s, "restore_s": restore_s,
+           "restore_gb_s": nbytes / restore_s / 1e9,
+           "inflight_ms": inflight_ms, "persisting": persisting,
+           "quiet_ms": quiet_ms,
+           "losses": cont, "resumed_losses": again, "bitwise": bitwise,
+           "loss_rel_err": loss_err, "leaf_rel_err": leaf_err}
+    if handle is not None:
+        out.update(snapshot_s=handle.blocked_s, persist_s=handle.persist_s,
+                   persist_gb_s=nbytes / handle.persist_s / 1e9)
+        save_what = ("snapshot %.4f s on the training thread, persist "
+                     "%.4f s (%.3f GB/s) in the background"
+                     % (handle.blocked_s, handle.persist_s,
+                        out["persist_gb_s"]))
+    else:
+        save_what = "sync save %.4f s (%.3f GB/s)" % (
+            save_s, nbytes / save_s / 1e9)
+    log("elastic: %s %s: v%d, %d leaves, %.1f MB; %s; restore %.4f s "
+        "(%.3f GB/s), every leaf bit-equal; step ms after the save %s "
+        "(* the persist still running at the step's end), then %s; "
+        "continuation losses %s vs %s: %s (loss %.3g, leaf %.3g "
+        "relative) [%s]"
+        % (what, mode, version, leaves, nbytes / 1e6, save_what, restore_s,
+           out["restore_gb_s"],
+           ["%.2f%s" % (x, "*" if p else "")
+            for x, p in zip(inflight_ms, persisting)],
+           ["%.2f" % x for x in quiet_ms], cont, again,
+           "bitwise" if bitwise else "within %g" % RESUME_RTOL, loss_err,
+           leaf_err, gpu))
+    return out
+
+
+def resnet_elastic_trainer(directory, async_save):
+    """The elastic ResNet50_vd: the bench's model and batch size, sgd
+    over the warm-up + cosine schedule."""
+    model, params, extra, loss_fn = resnet.create_model_and_loss(
+        depth=50, num_classes=1000, vd=True, space_to_depth=True,
+        dtype=torch.bfloat16, device="cuda")
+    total = (ELASTIC_EPOCHS + 1) * ELASTIC_STEPS
+    schedule = lr_schedules.linear_warmup(
+        lr_schedules.cosine_decay(lr_schedules.scale_lr_for_batch(
+            ELASTIC_LR, RESNET_BATCH), total), ELASTIC_WARMUP)
+    return trainer.ElasticTrainer(
+        loss_fn, params, optim.sgd(schedule, momentum=0.9),
+        total_batch_size=RESNET_BATCH, extra_state=extra, has_aux=True,
+        checkpoint_dir=directory, async_save=async_save, device="cuda",
+        keep_checkpoints=2)
+
+
+def resnet_elastic_batch(epoch, i):
+    gen = torch.Generator(device="cuda").manual_seed(1000 * epoch + i)
+    return {"image": torch.randn(RESNET_BATCH, RESNET_IMAGE, RESNET_IMAGE, 3,
+                                 generator=gen, device="cuda"),
+            "label": torch.randint(0, 1000, (RESNET_BATCH,), generator=gen,
+                                   device="cuda")}
+
+
+def gpt_elastic_trainer(directory, async_save):
+    model = Gpt(dtype=torch.bfloat16, remat=True, use_flash=True,
+                device="cuda")
+    _, params, loss_fn = gpt.create_model_and_loss(model=model)
+    return trainer.ElasticTrainer(
+        loss_fn, params, optim.adamw(1e-4), total_batch_size=GPT_BATCH,
+        checkpoint_dir=directory, async_save=async_save, device="cuda",
+        keep_checkpoints=2)
+
+
+def gpt_elastic_batch(epoch, i):
+    gen = torch.Generator(device="cuda").manual_seed(1000 * epoch + i)
+    return {"input_ids": torch.randint(0, GPT2S["vocab_size"],
+                                       (GPT_BATCH, GPT2S["seq_len"]),
+                                       generator=gen, device="cuda")}
+
+
+def determinism_probe(gpu):
+    """One ResNet50_vd step twice from the same state and batch, with
+    cuDNN's default algorithms and with ``cudnn.deterministic``: which
+    of the two repeats itself bit for bit. Returns None where the default
+    algorithms repeat, else what differs (the ResNet continuations and
+    the drill are then held to RESUME_RTOL)."""
+    model, params, extra, loss_fn = resnet.create_model_and_loss(
+        depth=50, num_classes=1000, vd=True, space_to_depth=True,
+        dtype=torch.bfloat16, device="cuda")
+    tx = optim.sgd(0.1, momentum=0.9)
+    step = trainer.make_train_step(loss_fn, tx, has_aux=True)
+    state = trainer.make_train_state(params, tx, extra)
+    batch = resnet_elastic_batch(9, 0)
+    out = {}
+    before = torch.backends.cudnn.deterministic
+    try:
+        for det in (False, True):
+            torch.backends.cudnn.deterministic = det
+            runs = [step(state, batch, None) for _ in range(2)]
+            a, b = (flat_state(s) for s, _ in runs)
+            differ = [k for k in a if not torch.equal(a[k], b[k])]
+            out[det] = (runs[0][1].item() == runs[1][1].item(), differ)
+    finally:
+        torch.backends.cudnn.deterministic = before
+    for det, (same_loss, differ) in out.items():
+        log("elastic: ResNet50_vd step repeated from one state, "
+            "cudnn.deterministic=%s: loss %s, %d leaves differ%s [%s]"
+            % (det, "equal" if same_loss else "differs", len(differ),
+               " (e.g. %s)" % differ[:4] if differ else "", gpu))
+    same_loss, differ = out[False]
+    if same_loss and not differ:
+        return None
+    return ("a ResNet50_vd step does not repeat with cuDNN's default "
+            "algorithms (leaves %s differ; with cudnn.deterministic %s)"
+            % (differ[:4], "they do not" if out[True][1] else "none do"))
+
+
+def elastic_drill(gpu, args=DRILL_ARGS, device="cuda",
+                  nondeterministic=None):
+    """The stop-resume drill through ``python -m
+    edl_tpu_torch.examples.resnet.train``: a run SIGTERMed once epoch
+    1's first step is printed must exit 101 with an emergency checkpoint
+    at its current step, mid-epoch; its restart must resume at that step
+    and exit 0; its final state must match a run in this process over
+    the same batches (epoch 0, the interrupted epoch's first steps, then
+    that epoch again: a restart re-runs the interrupted epoch) bit for
+    bit, or within RESUME_RTOL where ``nondeterministic`` says why the
+    step cannot repeat."""
+    from edl_tpu_torch.examples.resnet import train as example
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    directory = tempfile.mkdtemp(prefix="drill_")
+    env = dict(os.environ, EDL_TPU_CHECKPOINT_PATH=directory,
+               PYTHONPATH=repo)
+    cmd = ([sys.executable, "-m", "edl_tpu_torch.examples.resnet.train"]
+           + list(args) + ["--device", device])
+    parsed = example.parse_args(list(args) + ["--device", device])
+    spe = parsed.steps_per_epoch
+
+    def run(kill_after=None):
+        t0 = time.monotonic()
+        lines = []
+        with tempfile.TemporaryFile("w+") as err:
+            proc = subprocess.Popen(cmd, cwd=repo, env=env, text=True,
+                                    stdout=subprocess.PIPE, stderr=err)
+            try:
+                for line in proc.stdout:
+                    lines.append(line.rstrip())
+                    if kill_after and line.startswith(kill_after):
+                        proc.send_signal(signal.SIGTERM)
+                        kill_after = None
+                rc = proc.wait(timeout=DRILL_TIMEOUT)
+            finally:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+            if rc not in (0, 101):
+                err.seek(0)
+                log("\n".join(err.read().splitlines()[-30:]))
+        return rc, lines, time.monotonic() - t0
+
+    try:
+        rc, lines, first_s = run(kill_after=DRILL_KILL_AFTER)
+        cm = checkpoint_mod.CheckpointManager(directory)
+        versions = cm.versions()
+        if rc != 101 or not versions:
+            raise AssertionError("drill: the SIGTERMed run exited %s with "
+                                 "versions %s: %s" % (rc, versions,
+                                                      lines[-5:]))
+        stop = versions[-1]
+        ended = cm.meta(stop)["state"]["epochs"]["1"]["ended"]
+        if not spe < stop < 2 * spe or ended:
+            raise AssertionError("drill: emergency checkpoint v%d (epoch 1 "
+                                 "ended: %s) is not mid-epoch 1" % (stop,
+                                                                    ended))
+        rc2, lines2, second_s = run()
+        want_line = "resumed=True step=%d" % stop
+        if rc2 != 0 or not any(want_line in ln for ln in lines2):
+            raise AssertionError("drill: the restart exited %s without "
+                                 "%r: %s" % (rc2, want_line, lines2[:3]))
+        result = json.loads(lines2[-1])
+        final = stop + spe  # the interrupted epoch runs again in full
+        if result["steps"] != final or cm.versions()[-1] != final:
+            raise AssertionError("drill: restart ended at step %s, v%s; "
+                                 "want %d" % (result["steps"],
+                                              cm.versions()[-1], final))
+        # the same batches in this process, with no stop
+        _, ref = example.build(parsed, checkpoint_dir="")
+        seq = ([(0, i) for i in range(spe)]
+               + [(1, i) for i in range(stop - spe)]
+               + [(1, i) for i in range(spe)])
+        streams = {e: list(example.host_batches(parsed, ref, e))
+                   for e in (0, 1)}
+        for epoch, i in seq:
+            ref.train_step(streams[epoch][i])
+        _, restored, _ = cm.restore(final, target=dict(ref.train_state))
+        got = flat_state(restored)
+        want = flat_state(ref.train_state)
+        worst = 0.0
+        for key, w in want.items():
+            g = got[key].to(w.device)
+            if not torch.equal(g, w):
+                worst = max(worst, (g.double() - w.double()).norm().item()
+                            / max(w.double().norm().item(), 1e-30))
+        if worst > (0.0 if nondeterministic is None else RESUME_RTOL):
+            raise AssertionError(
+                "drill: final state %.3g relative Frobenius from the same "
+                "batches run without a stop (limit %s)"
+                % (worst, "bit for bit" if nondeterministic is None else
+                   "%g: %s" % (RESUME_RTOL, nondeterministic)))
+        log("elastic: drill (%s): SIGTERM after %r -> exit 101 with an "
+            "emergency checkpoint at step %d of epoch 1 (%.1f s); restart "
+            "resumed at step %d, exit 0 at step %d (%.1f s); final state "
+            "vs the same batches without a stop: %s [%s]"
+            % (" ".join(args), DRILL_KILL_AFTER.strip(), stop, first_s,
+               stop, final, second_s,
+               "bit-equal" if worst == 0.0 else
+               "worst leaf %.3g relative Frobenius" % worst, gpu))
+        return {"stop": stop, "final": final, "first_s": first_s,
+                "second_s": second_s, "leaf_rel_err": worst}
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+
+
+def hold_async_snapshot_in_place(gpu):
+    """``save_async`` of f32 leaves on the card, then at once an in-place
+    write to every leaf on the training stream, while the snapshot's
+    device-to-host copies may still run: the restored leaves must be the
+    values at the save. The same leaves copied on a side stream that the
+    training stream does not wait on show whether such a write races
+    the copy (how many leaves it reached), so that the check can fail."""
+    directory = tempfile.mkdtemp(prefix="inplace_")
+    try:
+        gen = torch.Generator(device="cuda").manual_seed(11)
+        n = INPLACE_MB << 18  # f32 elements
+        tree = {"w%d" % i: torch.randn(n, generator=gen, device="cuda")
+                for i in range(INPLACE_LEAVES)}
+        want = {k: v.cpu() for k, v in tree.items()}
+        cm = checkpoint_mod.CheckpointManager(directory)
+        handle = cm.save_async(1, tree)
+        for v in tree.values():
+            v.neg_()
+        handle.result()
+        _, restored, _ = cm.restore(1)
+        cm.close()
+        bad = [k for k in want if not torch.equal(restored[k], want[k])]
+        if bad:
+            raise AssertionError("async snapshot: leaves %s were restored "
+                                 "with an in-place write made after "
+                                 "save_async returned" % bad)
+        # the hazard: a copy that the training stream does not wait on
+        side = torch.cuda.Stream()
+        host = {k: torch.empty(n, pin_memory=True) for k in tree}
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for k, v in tree.items():
+                host[k].copy_(v, non_blocking=True)
+        for v in tree.values():
+            v.neg_()
+        side.synchronize()
+        raced = sum(not torch.equal(host[k], -want[k]) for k in want)
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+    log("elastic: save_async of %d f32 leaves of %d MB, each written in "
+        "place at once: restored as saved; the same write reached %d of "
+        "%d leaves of a copy the training stream does not wait on [%s]"
+        % (INPLACE_LEAVES, INPLACE_MB, raced, INPLACE_LEAVES, gpu))
+    return {"leaves": INPLACE_LEAVES, "mb": INPLACE_MB,
+            "unordered_copy_raced": raced}
+
+
+def ckpt_phase(gpu):
+    """tools/ckpt_bench's CRC-gated round trip of a CKPT_BENCH_MB state
+    on the card."""
+    from edl_tpu_torch.tools import ckpt_bench
+
+    directory = tempfile.mkdtemp(prefix="ckpt_bench_")
+    try:
+        out = ckpt_bench.run(tree_mb=CKPT_BENCH_MB, repeats=2,
+                             device="cuda", directory=directory)
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+    log("elastic: ckpt_bench %s [%s]" % (json.dumps(out), gpu))
+    if not out["roundtrip_ok"]:
+        raise AssertionError("ckpt_bench: the round trip is not bit-exact")
+    return out
+
+
+def elastic_phase(gpu):
+    """Phase 7: the checkpoint engine and ElasticTrainer on the card.
+    Returns the flash launches of its in-process paths."""
+    by_path = {}
+    torch.cuda.empty_cache()
+    fa.reset_launches()
+    resnet_nondet = determinism_probe(gpu)
+    resnet_runs = [elastic_round_trip(resnet_elastic_trainer,
+                                      resnet_elastic_batch, "ResNet50_vd",
+                                      async_save, gpu, resnet_nondet)
+                   for async_save in (False, True)]
+    by_path["elastic_resnet"] = dict(fa.flash_attention.kernel_launches)
+    if any(by_path["elastic_resnet"].values()):
+        raise AssertionError("elastic_resnet launched flash kernels: %s"
+                             % by_path["elastic_resnet"])
+    torch.cuda.empty_cache()
+    fa.reset_launches()
+    gpt_runs = [elastic_round_trip(gpt_elastic_trainer, gpt_elastic_batch,
+                                   "GPT-2s", async_save, gpu)
+                for async_save in (False, True)]
+    launches = dict(fa.flash_attention.kernel_launches)
+    # each round trip: the saved epochs, ELASTIC_CONT steps in flight and
+    # ELASTIC_CONT quiet, and the resumed ELASTIC_CONT
+    steps = 2 * (ELASTIC_EPOCHS * ELASTIC_STEPS + 3 * ELASTIC_CONT)
+    layers = GPT2S["num_layers"]
+    want = only("sm90", 2 * layers * steps,
+                **{k: layers * steps for k in fa.bwd_kernel_names("sm90")})
+    if launches != want:
+        raise AssertionError("elastic_gpt: flash launches %s over %d steps, "
+                             "want %s" % (launches, steps, want))
+    by_path["elastic_gpt"] = launches
+    torch.cuda.empty_cache()
+    drill = elastic_drill(gpu, nondeterministic=resnet_nondet)
+    in_place = hold_async_snapshot_in_place(gpu)
+    bench_out = ckpt_phase(gpu)
+    log("elastic: %s [%s]" % (json.dumps({
+        "resnet": [{k: v for k, v in r.items() if k != "leaves"}
+                   for r in resnet_runs],
+        "gpt2s": [{k: v for k, v in r.items() if k != "leaves"}
+                  for r in gpt_runs],
+        "resnet_nondeterministic": resnet_nondet,
+        "drill": drill, "async_in_place": in_place,
+        "ckpt_bench": bench_out}), gpu))
+    return by_path
+
+
 def step_profile(stats, what, gpu, groups=None, ranges=()):
     """One more step of a bench run, profiled: device time by kernel and
     its share of the step's time (the device-busy share)."""
@@ -1785,6 +2308,7 @@ def main():
     by_path.update(decode_phase(gpu))
     by_path.update(train_phase(gpu))
     by_path.update(resnet_phase(gpu))
+    by_path.update(elastic_phase(gpu))
     repo = os.path.dirname(os.path.abspath(__file__))
     # each kernel's numbers at its main path's shape: sm90 at the served
     # predict (bf16 causal, b4); tf32x3 at lm_teacher's longest prefill,

@@ -29,20 +29,11 @@ import torch
 from edl_tpu.ops.batch_norm import SubsetBatchNorm as JSubsetBatchNorm
 from edl_tpu_torch.ops import batch_norm as tbn
 
+from _torch_threads import _one_torch_thread  # noqa: F401
+
 F32_TOL, F32_GRAD_TOL = 1e-5, 1e-4
 BF16_TOL, BF16_GRAD_TOL = 2.0 ** -7, 2.0 ** -6
 SHAPE = (8, 5, 5, 6)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """Small CPU ops run faster on one thread, and the driver's run
-    shares the cores among six workers: intra-op threads there only
-    oversubscribe them. Restored after the module."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(before)
 
 
 def _jax_module(kind, train, dtype, k):

@@ -8,8 +8,11 @@ import stat
 import sys
 
 import pytest
+import torch
 
 from edl_tpu_torch.utils import buildlock
+
+from _torch_threads import _one_torch_thread  # noqa: F401
 
 
 @pytest.fixture()

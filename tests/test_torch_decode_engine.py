@@ -26,6 +26,9 @@ from edl_tpu_torch.serve.decode_engine import DecodeEngine
 from edl_tpu_torch.serve.scaler import ServeScaler, load_actions
 from edl_tpu_torch.utils import errors
 
+from _torch_threads import _one_torch_thread  # noqa: F401
+
+
 SIZE = dict(num_layers=2, d_model=32, num_heads=2, mlp_dim=64,
             vocab_size=64, max_len=64)
 NEW = 6

@@ -19,6 +19,9 @@ from edl_tpu.ops import flash_attention as jfa
 from edl_tpu_torch.ops import attention as tattn
 from edl_tpu_torch.ops import flash_attention as tfa
 
+from _torch_threads import _one_torch_thread  # noqa: F401
+
+
 F32_TOL = 2e-5
 
 

@@ -23,6 +23,9 @@ import torch
 from edl_tpu.ops import flash_attention as jfa
 from edl_tpu_torch.ops import flash_attention as tfa
 
+from _torch_threads import _one_torch_thread  # noqa: F401
+
+
 GRAD_TOL = 1e-4
 AUTOGRAD_TOL = 1e-5
 

@@ -71,6 +71,8 @@ import chip_smoke
 from edl_tpu_torch.ops import flash_attention as fa
 from edl_tpu_torch.utils import buildlock
 
+from _torch_threads import _one_torch_thread  # noqa: F401
+
 
 @pytest.fixture()
 def gen():

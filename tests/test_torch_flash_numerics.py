@@ -59,6 +59,9 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 import chip_smoke  # noqa: E402
 from edl_tpu_torch.ops import flash_attention as fa  # noqa: E402
 
+from _torch_threads import _one_torch_thread  # noqa: F401
+
+
 TILE = 64  # the sm90 kernel's kv tile
 
 

@@ -13,6 +13,9 @@ import torch
 from edl_tpu.models import gpt as jgpt
 from edl_tpu_torch.models import gpt as tgpt
 
+from _torch_threads import _one_torch_thread  # noqa: F401
+
+
 KW = dict(num_layers=2, d_model=64, num_heads=4, mlp_dim=128,
           vocab_size=128, max_len=64)
 # f32 through the whole stack: the JAX suite's own dense-vs-flash gate

@@ -26,6 +26,9 @@ from edl_tpu.ops import quant as jquant
 from edl_tpu_torch.models import gpt as tgpt
 from edl_tpu_torch.ops import quant as tquant
 
+from _torch_threads import _one_torch_thread  # noqa: F401
+
+
 SIZE = dict(num_layers=2, d_model=32, num_heads=2, mlp_dim=64,
             vocab_size=64, max_len=64)
 TOL = dict(rtol=1e-4, atol=1e-4)

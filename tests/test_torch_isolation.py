@@ -10,6 +10,9 @@ import sys
 import pytest
 import torch
 
+from _torch_threads import _one_torch_thread  # noqa: F401
+
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "edl_tpu_torch")
 FORBIDDEN_ROOTS = ("jax", "jaxlib", "flax", "optax")
@@ -59,13 +62,24 @@ bad = sorted(n for n in sys.modules
 print("MODULES", len([n for n in sys.modules
                       if n.startswith("edl_tpu_torch")]))
 print("BAD", bad)
+print("ELASTIC", sorted(n for n in sys.modules if n in ELASTIC))
 """
+    # the elastic slice's modules are among those imported
+    elastic = ["edl_tpu_torch." + m for m in (
+        "utils.json_serializable", "controller.constants",
+        "controller.train_status", "controller.env", "runtime.state",
+        "runtime.fs", "obs.ledger", "obs.flight", "obs.publisher",
+        "runtime.preemption", "runtime.checkpoint", "runtime.lr_schedules",
+        "runtime.evaluation", "runtime.trainer", "tools.ckpt_bench",
+        "examples.resnet.train")]
+    code = "ELASTIC = %r\n" % (elastic,) + code
     env = dict(os.environ, PYTHONPATH=REPO)
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert "BAD []" in out.stdout, out.stdout
     assert int(out.stdout.split("MODULES")[1].split()[0]) >= 20
+    assert "ELASTIC %r" % sorted(elastic) in out.stdout, out.stdout
 
 
 def test_entry_points_raise_without_cuda(monkeypatch):
@@ -95,3 +109,16 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         bert.bert_tiny()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         gpt.create_model_and_loss()
+    # the elastic slice: the trainer, the example and ckpt_bench
+    from edl_tpu_torch.examples.resnet import train as example
+    from edl_tpu_torch.runtime import optim
+    from edl_tpu_torch.runtime.trainer import ElasticTrainer
+    from edl_tpu_torch.tools import ckpt_bench
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ElasticTrainer(lambda p, b, r: None, {"w": torch.zeros(2)},
+                       optim.sgd(0.1), total_batch_size=2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        example.build(example.parse_args(["--depth", "18"]),
+                      checkpoint_dir="")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ckpt_bench.run(tree_mb=0.01, repeats=1)

@@ -13,6 +13,9 @@ import torch
 from edl_tpu.serve import kv_cache as jkv
 from edl_tpu_torch.serve import kv_cache as tkv
 
+from _torch_threads import _one_torch_thread  # noqa: F401
+
+
 SLOTS = 4
 ROW = (6, 2, 4)  # max_len, heads, head_dim
 

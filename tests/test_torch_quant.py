@@ -13,6 +13,8 @@ from edl_tpu.ops import quant as jquant
 from edl_tpu_torch.models import gpt as tgpt
 from edl_tpu_torch.ops import quant as tquant
 
+from _torch_threads import _one_torch_thread  # noqa: F401
+
 
 @pytest.fixture(scope="module")
 def flax_params():

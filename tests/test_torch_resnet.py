@@ -54,6 +54,8 @@ from edl_tpu_torch.models import resnet as tresnet  # noqa: E402
 from edl_tpu_torch.runtime import optim as toptim  # noqa: E402
 from edl_tpu_torch.runtime import trainer as ttrainer  # noqa: E402
 
+from _torch_threads import _one_torch_thread  # noqa: F401
+
 SF = (8, 16, 32, 64)
 CLASSES, IMAGE, BATCH = 10, 32, 4
 F64_TOL = 1e-6
@@ -67,17 +69,6 @@ FAST_COMPILE = {"xla_backend_optimization_level": 0,
 # a small ResNet for the port-only step checks
 SMALL = dict(depth=18, num_classes=CLASSES, vd=True,
              stage_filters=(4, 8, 8, 8), space_to_depth=True)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """Small CPU ops run faster on one thread, and the driver's run
-    shares the cores among six workers: intra-op threads there only
-    oversubscribe them. Restored after the module."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(before)
 
 
 def _fill(shapes, seed):
@@ -705,13 +696,162 @@ def bf16_gradient_noise(batch=16, image=64, seed=0):
                                   grads["jax", False])}
 
 
+def bf16_op_cotangents(seed=0, batch=16, size=16, ch=64):
+    """Where the two packages' bf16 backwards part: one op at a time,
+    the same bf16 input and bf16 cotangent (numpy, ``seed``) into both
+    packages, each op's input cotangent (and a conv's kernel gradient)
+    against the port's f64 one. Ops: flax's BatchNorm in train mode, a
+    3x3 and a 1x1 conv (f32 kernel, bf16 compute), the head's bf16 mean,
+    and a whole bottleneck block (stage0_block1's widths). Returns {op:
+    (jax vs f64, port vs f64, port vs jax)} in relative Frobenius norm.
+    Run it with and without ``XLA_FLAGS=--xla_allow_excess_precision=
+    false`` (XLA's default keeps f32 where the program rounds to bf16)."""
+    import flax.linen as fnn
+    import ml_dtypes
+
+    rng = np.random.RandomState(seed)
+    bf = lambda a: a.astype(np.float32).astype(ml_dtypes.bfloat16)
+    x = bf(rng.randn(batch, size, size, ch) * 1.5 + 0.3)
+    g = bf(rng.randn(batch, size, size, ch))
+    nchw = lambda a, dt: torch.from_numpy(np.asarray(a, np.float64)).to(
+        dt).permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+    nhwc = lambda t: t.detach().permute(0, 2, 3, 1).double().numpy()
+    rel = lambda a, b: float(np.linalg.norm(np.float64(a) - np.float64(b))
+                             / np.linalg.norm(np.float64(b)))
+    wide = lambda dt: jnp.float64 if dt == jnp.float64 else jnp.float32
+
+    def jax_vjp(fn, dt, *args):
+        """The cotangents of ``fn(*args)`` for ``g`` (or ``gg``), in
+        ``dt`` (f64 under x64)."""
+        with jax.enable_x64(dt == jnp.float64):
+            f = jax.jit(lambda gg, *a: jax.vjp(fn, *a)[1](gg))
+            out = f(*[jnp.asarray(a, t) for a, t in args])
+            return [np.asarray(o, np.float64) for o in out]
+
+    def port_vjp(module, dt, cot, *args):
+        ins = [a.requires_grad_(True) for a in args]
+        y = module(*ins)
+        y.backward(cot)
+        return ins
+
+    out = {}
+    scale = rng.uniform(0.8, 1.2, ch).astype(np.float32)
+    bias = (rng.randn(ch) * 0.1).astype(np.float32)
+
+    def bn_jax(dt):
+        bn = fnn.BatchNorm(use_running_average=False, momentum=0.9,
+                           epsilon=1e-5, dtype=dt, param_dtype=wide(dt))
+        v = {"params": {"scale": scale, "bias": bias},
+             "batch_stats": {"mean": np.zeros(ch, np.float32),
+                             "var": np.ones(ch, np.float32)}}
+        return jax_vjp(lambda z: bn.apply(
+            jax.tree_util.tree_map(lambda a: jnp.asarray(a, wide(dt)), v),
+            z, mutable=["batch_stats"])[0], dt, (g, dt), (x, dt))[0]
+
+    def bn_port(dt):
+        pdt = torch.float64 if dt == torch.float64 else torch.float32
+        m = tresnet.BatchNorm(ch, dtype=dt, device="cpu").to(pdt)
+        with torch.no_grad():
+            m.scale.copy_(torch.from_numpy(scale))
+            m.bias.copy_(torch.from_numpy(bias))
+        xi, = port_vjp(lambda z: m(z, torch.zeros(ch, dtype=pdt),
+                                   torch.ones(ch, dtype=pdt), True)[0],
+                       dt, nchw(g, dt), nchw(x, dt))
+        return nhwc(xi.grad)
+
+    out["BatchNorm train: dx"] = (bn_jax(jnp.bfloat16),
+                                  bn_port(torch.bfloat16),
+                                  bn_port(torch.float64))
+    for k in (3, 1):
+        w = (rng.randn(k, k, ch, ch) / np.sqrt(k * k * ch)).astype(
+            np.float32)
+
+        def conv_jax(dt):
+            conv = fnn.Conv(ch, (k, k), use_bias=False, dtype=dt)
+            return jax_vjp(lambda z, q: conv.apply(
+                {"params": {"kernel": q}}, z), dt, (g, dt), (x, dt),
+                (w, wide(dt)))
+
+        def conv_port(dt):
+            m = tresnet.Conv(ch, ch, k, dtype=dt, device="cpu")
+            m = m.to(torch.float64 if dt == torch.float64 else torch.float32)
+            with torch.no_grad():
+                m.kernel.copy_(torch.from_numpy(w.transpose(3, 2, 0, 1)))
+            xi, = port_vjp(m, dt, nchw(g, dt), nchw(x, dt))
+            return [nhwc(xi.grad),
+                    m.kernel.grad.permute(2, 3, 1, 0).double().numpy()]
+
+        jc, pc, fc = (conv_jax(jnp.bfloat16), conv_port(torch.bfloat16),
+                      conv_port(torch.float64))
+        out["conv %dx%d: dx" % (k, k)] = (jc[0], pc[0], fc[0])
+        out["conv %dx%d: dkernel" % (k, k)] = (jc[1], pc[1], fc[1])
+
+    def mean_port(dt):
+        xi, = port_vjp(lambda z: z.mean((2, 3), dtype=torch.promote_types(
+            dt, torch.float32)).to(dt), dt,
+            torch.from_numpy(np.float64(g[:, 0, 0])).to(dt), nchw(x, dt))
+        return nhwc(xi.grad)
+
+    out["head mean: dx"] = (
+        jax_vjp(lambda z: jnp.mean(z, axis=(1, 2)), jnp.bfloat16,
+                (g[:, 0, 0], jnp.bfloat16), (x, jnp.bfloat16))[0],
+        mean_port(torch.bfloat16), mean_port(torch.float64))
+    # a bottleneck block, 4 * ch -> ch -> 4 * ch, stride 1
+    xb = bf(rng.randn(batch, size, size, 4 * ch))
+    gb = bf(rng.randn(batch, size, size, 4 * ch))
+    shapes = tresnet.name_norms(tresnet.BottleneckBlock(
+        4 * ch, ch, 1, True, device="meta"))
+    flat = {}
+    for name, p in shapes.named_parameters():
+        if name.endswith("kernel"):
+            v = rng.randn(*p.shape) / np.sqrt(np.prod(p.shape[1:]))
+        elif name.endswith("scale"):
+            v = rng.uniform(*((0.2, 0.3) if "bn3" in name else (0.8, 1.2)),
+                            p.shape)
+        else:
+            v = rng.randn(*p.shape) * 0.1
+        flat[name] = torch.from_numpy(v.astype(np.float32))
+    stats = {k: torch.zeros(v.shape) if k.endswith("mean")
+             else torch.ones(v.shape)
+             for k, v in tresnet.init_batch_stats(shapes).items()}
+    tree = {"params": _to_flax(flat), "batch_stats": _to_flax(stats)}
+
+    def block_jax(dt):
+        blk = jresnet.BottleneckBlock(filters=ch, stride=1, vd=True, dtype=dt)
+        v = jax.tree_util.tree_map(lambda a: a.astype(wide(dt)), tree)
+        return jax_vjp(lambda z: blk.apply(v, z, train=True,
+                                           mutable=["batch_stats"])[0],
+                       dt, (gb, dt), (xb, dt))[0]
+
+    def block_port(dt):
+        m = tresnet.name_norms(tresnet.BottleneckBlock(
+            4 * ch, ch, 1, True, dtype=dt, device="cpu"))
+        pdt = torch.float64 if dt == torch.float64 else torch.float32
+        p = {k: v.to(pdt) for k, v in flat.items()}
+        s = {k: v.to(pdt) for k, v in stats.items()}
+        xi, = port_vjp(lambda z: torch.func.functional_call(
+            m, p, (z, s, True))[0], dt, nchw(gb, dt), nchw(xb, dt))
+        return nhwc(xi.grad)
+
+    out["bottleneck block: dx"] = (block_jax(jnp.bfloat16),
+                                   block_port(torch.bfloat16),
+                                   block_port(torch.float64))
+    return {op: (rel(j, f), rel(p, f), rel(p, j))
+            for op, (j, p, f) in out.items()}
+
+
 if __name__ == "__main__":
     # python tests/test_torch_resnet.py: the bf16 gradient noise of both
-    # packages at ResNet50_vd's widths (a few minutes on the CPU)
+    # packages at ResNet50_vd's widths (a few minutes on the CPU), then
+    # op by op (bf16_op_cotangents)
     import time
 
     jax.config.update("jax_platforms", "cpu")
+    print("XLA_FLAGS=%r" % os.environ.get("XLA_FLAGS"))
     t0 = time.time()
+    for op, (j, p, pj) in bf16_op_cotangents().items():
+        print("%s, bf16 vs f64: JAX %.3e, port %.3e; port vs JAX %.3e"
+              % (op, j, p, pj))
     for batch, image in ((16, 64), (32, 128)):
         for name, (whole, median, worst, leaf) in bf16_gradient_noise(
                 batch, image).items():

@@ -40,20 +40,11 @@ from edl_tpu_torch.models import resnet as tresnet
 from edl_tpu_torch.obs import metrics as obs_metrics
 from edl_tpu_torch.serve.admission import AdmissionController
 
+from _torch_threads import _one_torch_thread  # noqa: F401
+
 TEACHER_TOL = 2.0 ** -6
 FAST_COMPILE = {"xla_backend_optimization_level": 0,
                 "xla_llvm_disable_expensive_passes": True}
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """Small CPU ops run faster on one thread, and the driver's run
-    shares the cores among six workers: intra-op threads there only
-    oversubscribe them. Restored after the module."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(before)
 
 
 def _batches(n, d=4):

@@ -16,6 +16,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from edl_tpu.distill import teacher_server as jts
 from edl_tpu.models import gpt as jgpt
@@ -26,6 +27,9 @@ from edl_tpu_torch.rpc.client import RpcClient as TorchRpcClient
 from edl_tpu_torch.serve.admission import \
     AdmissionController as TorchAdmission
 from edl_tpu_torch.utils import errors
+
+from _torch_threads import _one_torch_thread  # noqa: F401
+
 
 SEQ, VOCAB, MAX_BATCH = 16, 64, 3
 # the decode plane's tiny f32 model: the JAX decode suite's

@@ -32,6 +32,9 @@ from edl_tpu_torch.models import gpt as tgpt
 from edl_tpu_torch.runtime import optim as toptim
 from edl_tpu_torch.runtime import trainer as ttrainer
 
+from _torch_threads import _one_torch_thread  # noqa: F401
+
+
 TOL = 1e-4
 REMAT_TOL = 1e-6
 OPTAX_TOL = 1e-6
@@ -434,7 +437,6 @@ def test_bench_lm_loop_schema_on_cpu(kind, flash, capsys):
     assert np.isfinite(stats["losses"]).all()
     assert stats["mfu"] == pytest.approx(stats["implied_tflops"] / 989.0)
     json.loads(json.dumps(result))
-
 
 
 def test_bench_cli(capsys, monkeypatch):
