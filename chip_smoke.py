@@ -118,16 +118,54 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    (d) ``tools/ckpt_bench``'s CRC-gated
    round trip of a 1 GB state. Prints save, snapshot, persist and
    restore seconds, bytes and GB/s, and step ms with and without a
-   persist in flight.
+   persist in flight;
+8. distill: two ``gpt_teacher`` children at GPT-2s width (seq 256,
+   compiled batch 8, the same weights from INIT_SEED) serve a GPT-2s
+   student (flash, remat, adamw) that trains on their ``probs`` through
+   the port's ``DistillReader`` (fixed teachers) with
+   ``examples/distill/gpt_distill.py``'s loss: 2 epochs of 8 batches,
+   one teacher SIGKILLed mid-way through the last. Every batch must come
+   once, in the generator's order, with probs bit-equal to one teacher's
+   direct reply for the same ids; the student's losses and final state
+   must equal, bit for bit, a replay of the same steps from the same
+   initial state on the direct replies; the surviving teacher must
+   launch 12 ``sm90`` per device batch and the student 24 ``sm90`` and
+   12 of each sm90 backward kernel per step; the card's memory must come
+   back once the children are reaped. Prints the step with and without
+   the reader, the wait per batch and its share, bytes per reply, the
+   teachers' stats and the peak host RSS; as a control, the replay's
+   step again while clients pull the surviving teacher's replies in
+   threads of this process, then in other processes;
+9. distill examples: ``python -m edl_tpu_torch.examples.distill.
+   {gpt,resnet,mnist}_distill`` as subprocesses at their defaults
+   against the port's teacher CLI (mnist_distill serves its own): each
+   exits 0 with its final JSON line, mnist_distill's student meets the
+   reference's accuracy rule, and gpt_distill SIGTERMed mid-epoch exits
+   101; each child reports its flash launches at exit, held to what
+   auto-dispatch picks. Then ``tools/distill_bench`` with the gpt
+   teacher on the card (serial and pipelined byte-identical) and
+   ``tools/distill_qps``;
+10. serve_bench: ``tools/serve_bench``'s ``run("micro")`` under the
+   reference's gates (typed sheds only, none stranded, scale-out and
+   scale-in, the drain fault, dry-replay parity; its environment and
+   fault plane restored) and ``run_decode("micro")`` with its models
+   and KV caches on the card under its correctness gates (tokens equal
+   to ``generate`` serial, batched and int8; int8 logits and bytes; one
+   step shape; every shed reason; none stranded; the journaled
+   scale-out; prefix parity and exact accounting; no monolithic prefill
+   under chunking). Its three timing ratios and ``_decode_healthy``'s
+   verdict are printed, not gated.
 
-Prints a ``kernels`` JSON line (the three forward kernels, with and
-without lse, and the backward's five, launches by path, the ResNet
-and elastic paths included), the card's name and power limit, and last
+Prints each phase's wall seconds, a ``kernels`` JSON line (the three
+forward kernels, with and without lse, and the backward's five,
+launches by path, the ResNet, elastic, distill, example and bench paths
+included), the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``. Exits
 non-zero, printing no result, when CUDA is unavailable.
 """
 
 import contextlib
+import gc
 import json
 import os
 import shutil
@@ -136,6 +174,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -319,6 +358,52 @@ RESNET_KERNEL_GROUPS = {
 # casts, statistics, normalization and backward), apart from the
 # elementwise kernels of ReLU, the residual adds and the optimizer
 BN_RANGES = ("batch_norm", "batch_norm_backward")
+# the distill phase: a GPT-2s student (flash, bf16 over f32 params, remat,
+# adamw(DISTILL_LR)) at DISTILL_BATCH x DISTILL_SEQ trains with
+# examples/distill/gpt_distill.py's loss (weight DISTILL_W on the soft
+# term), fed by a DistillReader over two gpt_teacher children at GPT-2s
+# width whose compiled batch is the student's, so that every request is
+# one device batch of the same shape: DISTILL_EPOCHS epochs of
+# DISTILL_STEPS batches, one teacher SIGKILLed once DISTILL_KILL_AT
+# batches of the last epoch are out
+DISTILL_SEQ, DISTILL_BATCH, DISTILL_STEPS = 256, 8, 8
+DISTILL_EPOCHS, DISTILL_KILL_AT = 2, 3
+DISTILL_W, DISTILL_LR = 0.5, 1e-3
+# each reply carries f32 logits and probs, 2 x 8 x 256 x 32000 x 4 B = 524
+# MB: the reader feeds at most DISTILL_IN_FLIGHT batches ahead of the
+# student and keeps DISTILL_DEPTH requests on each teacher's connection
+DISTILL_IN_FLIGHT, DISTILL_DEPTH = 4, 2
+# the controls after the replay: DISTILL_CONTROL_STEPS more steps while
+# DISTILL_PULLERS clients keep the surviving teacher's replies streaming
+# into this process (threads) and into other processes, after
+# DISTILL_CONTROL_LEAD seconds of traffic
+DISTILL_CONTROL_STEPS, DISTILL_PULLERS, DISTILL_CONTROL_LEAD = 12, 2, 2.0
+# a child's start (import, CUDA context, weights) and any one RPC, seconds
+CHILD_TIMEOUT = 300
+# the card's free memory once the teacher children are reaped, against
+# before they started (this process's cache emptied both times): at most
+# CHILD_MEM_SLACK less
+CHILD_MEM_SLACK = 1 << 30
+# the examples phase: the port's distill examples as subprocesses at their
+# defaults, against the port's teacher CLI at the sizes the examples feed
+EXAMPLE_TIMEOUT = 300
+GPT_TEACHER_ARGS = ["--model", "gpt", "--seq_len", "16", "--vocab_size",
+                    "64"]
+RESNET_TEACHER_ARGS = ["--model", "resnet", "--depth", "18", "--image_size",
+                       "32", "--num_classes", "10"]
+# the examples' GPT (gpt_distill's student, the teacher CLI's and
+# distill_bench's gpt_teacher): 2 layers, d 64 over 4 heads
+EX_LAYERS, EX_HEAD_DIM = 2, 64 // 4
+# gpt_distill SIGTERMed once this line is printed (mid-epoch: the run has
+# GPT_SIGTERM_STEPS steps)
+GPT_SIGTERM_STEPS, GPT_SIGTERM_AFTER = 1000, "epoch 0 step 3 "
+# mnist_distill's rule (the reference's tests/test_distill_accuracy.py):
+# the 32-unit student recovers the 256-unit teacher's accuracy
+MNIST_TEACHER_ACC, MNIST_STUDENT_ACC, MNIST_STEPS, MNIST_LOSS = (0.95, 0.9,
+                                                                60, 0.67)
+# the serve-bench phase: tools/serve_bench's micro arcs and its int8 gate
+SERVE_SEED = 7
+INT8_BENCH_REL, INT8_BENCH_BYTES = 0.05, 0.6
 
 
 def card():
@@ -2295,20 +2380,720 @@ def int8_gate(feed, f32_logits, gpu):
     decode_step_profile(server.decode_engine, "int8 decode step", gpu)
 
 
+class Child(object):
+    """A subprocess of the smoke: a thread collects its stdout lines, its
+    stderr goes to a temporary file (``tail`` shows its end)."""
+
+    def __init__(self, cmd, repo, name):
+        self.name = name
+        self.err = tempfile.TemporaryFile("w+")
+        self.proc = subprocess.Popen(
+            cmd, cwd=repo, env=dict(os.environ, PYTHONPATH=repo), text=True,
+            stdout=subprocess.PIPE, stderr=self.err)
+        self.lines = []
+        self._eof = False
+        self._cond = threading.Condition()
+        self._reader = threading.Thread(target=self._read, daemon=True)
+        self._reader.start()
+
+    def _read(self):
+        for line in self.proc.stdout:
+            with self._cond:
+                self.lines.append(line.rstrip("\n"))
+                self._cond.notify_all()
+        with self._cond:
+            self._eof = True
+            self._cond.notify_all()
+
+    def tail(self, n=30):
+        self.err.seek(0)
+        return "\n".join(self.err.read().splitlines()[-n:])
+
+    def wait_line(self, prefix, timeout=CHILD_TIMEOUT):
+        """The rest of the first stdout line starting with ``prefix``."""
+        deadline = time.monotonic() + timeout
+        with self._cond:
+            while True:
+                for line in self.lines:
+                    if line.startswith(prefix):
+                        return line[len(prefix):]
+                left = deadline - time.monotonic()
+                if self._eof or left <= 0:
+                    raise AssertionError(
+                        "%s: no %r line (exit %s); stdout %s; stderr:\n%s"
+                        % (self.name, prefix, self.proc.poll(),
+                           self.lines[-5:], self.tail()))
+                self._cond.wait(left)
+
+    def finish(self, sig=None, timeout=CHILD_TIMEOUT):
+        """Send ``sig`` (if any), wait for the exit; returns its code."""
+        if sig is not None and self.proc.poll() is None:
+            self.proc.send_signal(sig)
+        rc = self.proc.wait(timeout=timeout)
+        self._reader.join(timeout=10)
+        return rc
+
+    def reap(self):
+        """Kill the child if it still runs; wait for it."""
+        if self.proc.poll() is None:
+            self.proc.kill()
+        self.proc.wait()
+        self._reader.join(timeout=10)
+        self.err.close()
+
+
+# run ``python -m <module> <args>`` with the flash launch counts printed
+# as FLASH_LAUNCHES=<json> at its exit (after the module's own output)
+COUNTED = (
+    "import atexit, json, runpy, sys\n"
+    "from edl_tpu_torch.ops import flash_attention as fa\n"
+    "atexit.register(lambda: print('FLASH_LAUNCHES=' + json.dumps(\n"
+    "    fa.flash_attention.kernel_launches), flush=True))\n"
+    "sys.argv = sys.argv[1:]\n"
+    "runpy.run_module(sys.argv[0], run_name='__main__', alter_sys=True)\n")
+
+
+def counted(module, *args):
+    return [sys.executable, "-c", COUNTED, module] + list(args)
+
+
+def child_launches(child):
+    return json.loads(child.wait_line("FLASH_LAUNCHES=", timeout=30))
+
+
+def lm_step_launches(dtype, head_dim, seq, layers, steps):
+    """The flash launches of ``steps`` training steps (no remat) of a
+    ``layers``-deep LM at ``seq`` tokens, as auto-dispatch and
+    ``kernel_for`` / ``bwd_kernel_for`` decide them on the card (none
+    when dispatch keeps the shape dense)."""
+    from edl_tpu_torch.ops.attention import flash_dispatch_reason
+
+    if flash_dispatch_reason(seq, head_dim, device="cuda") is not None:
+        return only("sm90", 0)
+    bwd = fa.bwd_kernel_names(fa.bwd_kernel_for(dtype, head_dim))
+    return only(fa.kernel_for(dtype, head_dim), layers * steps,
+                **{k: layers * steps for k in bwd})
+
+
+def forward_only(counts, kernel, layers):
+    """``counts`` launch ``kernel`` alone, a positive multiple of
+    ``layers`` times (forwards of whole device batches)."""
+    n = counts[kernel]
+    return n > 0 and n % layers == 0 and counts == only(kernel, n)
+
+
+class RssSampler(object):
+    """Peak resident memory of this process while it runs, sampled from
+    /proc/self/statm every ``period`` seconds."""
+
+    def __init__(self, period=0.02):
+        self.period = period
+        self.peak = 0
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+
+    @staticmethod
+    def rss():
+        with open("/proc/self/statm") as f:
+            return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+
+    def _run(self):
+        while True:
+            self.peak = max(self.peak, self.rss())
+            if self._stop.wait(self.period):
+                return
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+
+
+def distill_ids(i):
+    """Batch ``i`` of the distill phase's student: ids from a seed."""
+    return np.random.RandomState(1000 + i).randint(
+        0, GPT2S["vocab_size"], (DISTILL_BATCH, DISTILL_SEQ)).astype(np.int32)
+
+
+def bit_equal(a, b):
+    a, b = np.asarray(a), np.asarray(b)
+    return (a.dtype == b.dtype and a.shape == b.shape
+            and a.tobytes() == b.tobytes())
+
+
+def distill_teacher_child():
+    """A teacher child of the distill phase: ``gpt_teacher`` at GPT-2s
+    width on the card (random weights from INIT_SEED, seq DISTILL_SEQ,
+    compiled batch DISTILL_BATCH, no projection shed: a reply takes
+    longer than the default 500 ms SLO). Prints TEACHER_ENDPOINT=, serves
+    until SIGTERM, then prints TEACHER_STATS= (its stats and flash
+    launches) and returns 0."""
+    stop = threading.Event()
+    signal.signal(signal.SIGTERM, lambda *_: stop.set())
+    server = gpt_teacher(**dict(GPT2S, seq_len=DISTILL_SEQ),
+                         max_batch=DISTILL_BATCH, host="127.0.0.1",
+                         admission=AdmissionController(slo_ms=None),
+                         device="cuda").start()
+    fa.reset_launches()
+    print("TEACHER_ENDPOINT=%s" % server.endpoint, flush=True)
+    stop.wait()
+    # stopped first: a batch still running when the signal came has then
+    # been counted in both the stats and the launches
+    server.stop()
+    stats = server.stats()
+    print("TEACHER_STATS=%s" % json.dumps({
+        "launches": dict(fa.flash_attention.kernel_launches),
+        "batches": stats["batches"], "rows": stats["rows"],
+        "occupancy": stats["occupancy"]}), flush=True)
+    return 0
+
+
+# a process that asks the teacher at argv[1] for one batch's predictions
+# over and over, printing a line per reply, until it is killed
+PULL_REPLIES = (
+    "import sys\n"
+    "import numpy as np\n"
+    "from edl_tpu_torch.rpc.client import RpcClient\n"
+    "client = RpcClient(sys.argv[1], timeout=300)\n"
+    "ids = np.zeros((%d, %d), np.int32)\n"
+    "while True:\n"
+    "    client.call('predict', {'input_ids': ids})\n"
+    "    print('reply', flush=True)\n")
+
+
+def reply_traffic_steps(tr, probs, endpoint, where, repo):
+    """DISTILL_CONTROL_STEPS steps of ``tr`` on distill batches (their
+    soft labels ``probs``) while DISTILL_PULLERS clients keep asking the
+    teacher at ``endpoint`` for predictions, in threads of this process
+    (``where`` "thread") or in other processes ("process"). Returns
+    (step ms, replies received meanwhile)."""
+    stop, count = threading.Event(), [0]
+
+    def pull():
+        client = RpcClient(endpoint, timeout=CHILD_TIMEOUT)
+        while not stop.is_set():
+            client.call("predict", {"input_ids": distill_ids(0)})
+            count[0] += 1
+        client.close()
+
+    if where == "thread":
+        pullers = [threading.Thread(target=pull, daemon=True)
+                   for _ in range(DISTILL_PULLERS)]
+        for t in pullers:
+            t.start()
+        replies = lambda: count[0]  # noqa: E731
+    else:
+        pullers = [Child([sys.executable, "-c", PULL_REPLIES % (
+            DISTILL_BATCH, DISTILL_SEQ), endpoint], repo, "reply puller")
+            for _ in range(DISTILL_PULLERS)]
+        replies = lambda: sum(len(c.lines) for c in pullers)  # noqa: E731
+    try:
+        time.sleep(DISTILL_CONTROL_LEAD)
+        n0, ms = replies(), []
+        for i in range(DISTILL_CONTROL_STEPS):
+            t0 = time.perf_counter()
+            float(tr.train_step({"input_ids": distill_ids(i % DISTILL_STEPS),
+                                 "soft_label": probs[i % DISTILL_STEPS]}))
+            ms.append((time.perf_counter() - t0) * 1e3)
+        n1 = replies()
+    finally:
+        stop.set()
+        for puller in pullers:
+            if where == "thread":
+                puller.join(timeout=CHILD_TIMEOUT)
+            else:
+                puller.reap()
+    return ms, n1 - n0
+
+
+def distill_phase(gpu):
+    """Phase 8: a GPT-2s student trains on two GPT-2s teachers'
+    predictions through the port's DistillReader. Returns the flash
+    launches of the student and of the surviving teacher."""
+    from edl_tpu_torch.distill.distill_reader import DistillReader
+    from edl_tpu_torch.examples.distill import gpt_distill
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    layers = GPT2S["num_layers"]
+    steps = DISTILL_EPOCHS * DISTILL_STEPS
+    torch.cuda.empty_cache()
+    free0 = torch.cuda.mem_get_info()[0]
+    reserved0 = torch.cuda.memory_reserved()
+    rss0 = RssSampler.rss()
+    cmd = [sys.executable, "-c", "import sys, chip_smoke; "
+           "sys.exit(chip_smoke.distill_teacher_child())"]
+    children = [Child(cmd, repo, "distill teacher %d" % i) for i in (0, 1)]
+    dr = None
+    try:
+        with RssSampler() as rss:
+            eps = [c.wait_line("TEACHER_ENDPOINT=") for c in children]
+            clients = [RpcClient(ep, timeout=CHILD_TIMEOUT) for ep in eps]
+            # the probs each batch must carry: teacher 1 called directly
+            # (it survives the kill); teacher 0 must give batch 0 the
+            # same bits
+            direct, reply_bytes, direct_s = [], 0, []
+            for i in range(DISTILL_STEPS):
+                t0 = time.perf_counter()
+                out = clients[1].call("predict",
+                                      {"input_ids": distill_ids(i)})
+                direct_s.append(time.perf_counter() - t0)
+                reply_bytes = sum(np.asarray(a).nbytes
+                                  for a in out.values())
+                direct.append(np.array(out["probs"]))
+                del out
+            if not bit_equal(clients[0].call(
+                    "predict", {"input_ids": distill_ids(0)})["probs"],
+                    direct[0]):
+                raise AssertionError("distill: the two teachers' probs for "
+                                     "one batch differ")
+
+            model = Gpt(**{k: v for k, v in GPT2S.items()
+                           if k != "seq_len"}, dtype=torch.bfloat16,
+                        remat=True, use_flash=True, device="cuda")
+            _, params, _ = gpt.create_model_and_loss(model=model)
+            init = {k: v.clone() for k, v in params.items()}
+            loss_fn = gpt_distill.make_loss_fn(model, DISTILL_W)
+
+            def student(p):
+                return trainer.ElasticTrainer(
+                    loss_fn, p, optim.adamw(DISTILL_LR),
+                    total_batch_size=DISTILL_BATCH, checkpoint_dir="",
+                    device="cuda")
+
+            def gen():
+                for i in range(DISTILL_STEPS):
+                    yield distill_ids(i), np.full(DISTILL_BATCH, i, np.int32)
+
+            tr = student(params)
+            dr = DistillReader(ins=["input_ids"], predicts=["probs"],
+                               max_in_flight=DISTILL_IN_FLIGHT,
+                               pipeline_depth=DISTILL_DEPTH,
+                               teacher_backoff=1.0,
+                               predict_timeout=CHILD_TIMEOUT)
+            dr.set_batch_generator(gen)
+            dr.set_fixed_teacher(eps)
+            fa.reset_launches()
+            losses, wait_ms, step_ms, kill = [], [], [], None
+            t_read = time.perf_counter()
+            for epoch in range(DISTILL_EPOCHS):
+                order = []
+                batches = dr()
+                while True:
+                    t0 = time.perf_counter()
+                    item = next(batches, None)
+                    if item is None:
+                        break
+                    ids, tag, probs = item
+                    t1 = time.perf_counter()
+                    i = int(tag[0])
+                    order.append(i)
+                    if not bit_equal(ids, distill_ids(i)):
+                        raise AssertionError("distill: epoch %d batch %d: "
+                                             "ids differ" % (epoch, i))
+                    if not bit_equal(probs, direct[i]):
+                        raise AssertionError(
+                            "distill: epoch %d batch %d: probs differ from "
+                            "the teacher's direct reply" % (epoch, i))
+                    losses.append(float(tr.train_step(
+                        {"input_ids": ids, "soft_label": probs})))
+                    wait_ms.append((t1 - t0) * 1e3)
+                    step_ms.append((time.perf_counter() - t1) * 1e3)
+                    del ids, tag, probs, item
+                    if (epoch == DISTILL_EPOCHS - 1
+                            and len(order) == DISTILL_KILL_AT):
+                        kill = {"stats": clients[0].call("stats"),
+                                "after": len(order)}
+                        children[0].proc.kill()
+                        kill["rc"] = children[0].proc.wait(timeout=60)
+                if order != list(range(DISTILL_STEPS)):
+                    raise AssertionError("distill: epoch %d delivered %s"
+                                         % (epoch, order))
+            read_s = time.perf_counter() - t_read
+            student_launches = dict(fa.flash_attention.kernel_launches)
+            # remat runs each forward twice
+            want = only("sm90", 2 * layers * steps,
+                        **{k: layers * steps
+                           for k in fa.bwd_kernel_names("sm90")})
+            if student_launches != want:
+                raise AssertionError("distill: the student launched %s over "
+                                     "%d steps, want %s"
+                                     % (student_launches, steps, want))
+            dr.stop()
+            dr = None
+
+            # the replay: the same steps from the same initial state on the
+            # directly fetched probs, without the reader
+            fa.reset_launches()
+            tr2 = student(init)
+            replay, replay_ms = [], []
+            for _ in range(DISTILL_EPOCHS):
+                for i in range(DISTILL_STEPS):
+                    t0 = time.perf_counter()
+                    replay.append(float(tr2.train_step(
+                        {"input_ids": distill_ids(i),
+                         "soft_label": direct[i]})))
+                    replay_ms.append((time.perf_counter() - t0) * 1e3)
+            if dict(fa.flash_attention.kernel_launches) != want:
+                raise AssertionError("distill: the replay launched %s"
+                                     % fa.flash_attention.kernel_launches)
+            if replay != losses:
+                raise AssertionError("distill: losses %s, replay %s"
+                                     % (losses, replay))
+            leaves = hold_bit_equal(tr2.train_state,
+                                    clone_state(tr.train_state),
+                                    "distill: the replay's final state")
+            control = {where: reply_traffic_steps(tr2, direct, eps[1],
+                                                  where, repo)
+                       for where in ("thread", "process")}
+            stats = clients[1].call("stats")
+            free_alive = torch.cuda.mem_get_info()[0]
+            for c in clients:
+                c.close()
+            if children[1].finish(signal.SIGTERM) != 0:
+                raise AssertionError("distill: teacher 1 exited %s:\n%s"
+                                     % (children[1].proc.returncode,
+                                        children[1].tail()))
+            survivor = json.loads(children[1].wait_line("TEACHER_STATS="))
+        if survivor["launches"] != only("sm90", layers
+                                        * survivor["batches"]):
+            raise AssertionError("distill: teacher 1 launched %s over %d "
+                                 "device batches" % (survivor["launches"],
+                                                     survivor["batches"]))
+        # the trainers hold their preemption guards in reference cycles
+        del tr, tr2, init, params, model, direct, loss_fn, student
+        gc.collect()
+        torch.cuda.empty_cache()
+        free1 = torch.cuda.mem_get_info()[0]
+        # what the card lacks against before the children started, less
+        # what this process's allocator still holds
+        lost = (free0 - free1) - (torch.cuda.memory_reserved() - reserved0)
+        if lost > CHILD_MEM_SLACK:
+            raise AssertionError(
+                "distill: %.2f GB of the card not returned after the "
+                "children exited (free %.2f GB before them, %.2f with them, "
+                "%.2f after)" % (lost / 1e9, free0 / 1e9, free_alive / 1e9,
+                                 free1 / 1e9))
+    finally:
+        if dr is not None:
+            dr.stop()
+        for c in children:
+            c.reap()
+    tokens = DISTILL_BATCH * DISTILL_SEQ
+    wall = [w + s for w, s in zip(wait_ms, step_ms)]
+    med = statistics.median
+    log("distill: GPT-2s student b%d x s%d on 2 GPT-2s teachers, %d epochs "
+        "of %d batches, teacher 0 SIGKILLed after batch %d of the last "
+        "(exit %s): every batch once, in order, probs bit-equal to the "
+        "direct reply; losses and final state (%d leaves) bit-equal to the "
+        "replay without the reader [%s]"
+        % (DISTILL_BATCH, DISTILL_SEQ, DISTILL_EPOCHS, DISTILL_STEPS,
+           kill["after"], kill["rc"], leaves, gpu))
+    log("distill: with the reader %.3f ms per step (median; wait %.3f + "
+        "train_step %.3f), %.1f tokens/s, wait share %.3f; %.1f s for %d "
+        "steps; without it (the replay) train_step %.3f ms, %.1f tokens/s "
+        "[%s]" % (med(wall), med(wait_ms), med(step_ms),
+                  tokens / med(wall) * 1e3, sum(wait_ms) / sum(wall),
+                  read_s, steps, med(replay_ms),
+                  tokens / med(replay_ms) * 1e3, gpu))
+    log("distill: card memory free %.2f GB before the children, %.2f GB "
+        "with them and this process's student, %.2f GB after they were "
+        "reaped [%s]" % (free0 / 1e9, free_alive / 1e9, free1 / 1e9, gpu))
+    log("distill: reply %d bytes (logits + probs), a direct predict %.3f s "
+        "(median of %d, %.2f GB/s); host RSS %.2f GB at the phase's start, "
+        "peak %.2f GB during it; "
+        "teacher 0 before the kill %s; teacher 1 at the end %s (its own "
+        "count: %d device batches, %d rows, occupancy %.3f, flash %s); "
+        "student launches %s [%s]"
+        % (reply_bytes, med(direct_s), len(direct_s),
+           reply_bytes / med(direct_s) / 1e9, rss0 / 1e9, rss.peak / 1e9,
+           {k: kill["stats"][k] for k in ("batches", "rows", "occupancy")},
+           {k: stats[k] for k in ("batches", "rows", "occupancy")},
+           survivor["batches"], survivor["rows"], survivor["occupancy"],
+           survivor["launches"], student_launches, gpu))
+    log("distill: losses %s; train_step ms with the reader %s, wait ms %s; "
+        "replay ms %s [%s]" % (["%.4f" % x for x in losses],
+                               ["%.1f" % x for x in step_ms],
+                               ["%.1f" % x for x in wait_ms],
+                               ["%.1f" % x for x in replay_ms], gpu))
+    log("distill: control, the replay's train_step while %d clients pull "
+        "the surviving teacher's replies in threads of this process: %s ms "
+        "(%d replies meanwhile); in other processes: %s ms (%d) [%s]"
+        % (DISTILL_PULLERS, ["%.1f" % x for x in control["thread"][0]],
+           control["thread"][1],
+           ["%.1f" % x for x in control["process"][0]],
+           control["process"][1], gpu))
+    return {"distill_student": student_launches,
+            "distill_teacher": survivor["launches"]}
+
+
+def distill_examples_phase(gpu):
+    """Phase 9: the port's three distill examples as subprocesses at their
+    defaults against the port's teacher CLI (or, for mnist_distill, its
+    own in-process teacher), gpt_distill SIGTERMed mid-epoch, then
+    distill_bench (gpt on the card) and distill_qps in this process.
+    Returns the flash launches by path."""
+    from edl_tpu_torch.examples.distill import gpt_distill, resnet_distill
+    from edl_tpu_torch.tools import distill_bench, distill_qps
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    teacher = "edl_tpu_torch.distill.teacher_server"
+    ex = "edl_tpu_torch.examples.distill."
+    by_path, children = {}, []
+
+    def start(name, cmd):
+        child = Child(cmd, repo, name)
+        children.append(child)
+        return child
+
+    def final_json(child):
+        rc = child.finish(timeout=EXAMPLE_TIMEOUT)
+        if rc != 0:
+            raise AssertionError("%s exited %s; stdout %s; stderr:\n%s"
+                                 % (child.name, rc, child.lines[-5:],
+                                    child.tail()))
+        return json.loads(next(ln for ln in reversed(child.lines)
+                               if ln.startswith("{")))
+
+    t0 = time.monotonic()
+    try:
+        gpt_t = start("gpt teacher", counted(teacher, *GPT_TEACHER_ARGS))
+        res_t = start("resnet teacher", counted(teacher,
+                                                *RESNET_TEACHER_ARGS))
+        mnist = start("mnist_distill", counted(ex + "mnist_distill"))
+        gpt_ep = gpt_t.wait_line("TEACHER_ENDPOINT=")
+        res_ep = res_t.wait_line("TEACHER_ENDPOINT=")
+        gpt_s = start("gpt_distill", counted(ex + "gpt_distill",
+                                             "--teachers", gpt_ep))
+        res_s = start("resnet_distill", counted(ex + "resnet_distill",
+                                                "--teachers", res_ep))
+        gpt_out, res_out = final_json(gpt_s), final_json(res_s)
+        by_path["example_gpt_distill"] = child_launches(gpt_s)
+        by_path["example_resnet_distill"] = child_launches(res_s)
+        # the same student, SIGTERMed mid-epoch: exit 101
+        term = start("gpt_distill (SIGTERM)", counted(
+            ex + "gpt_distill", "--teachers", gpt_ep, "--steps_per_epoch",
+            str(GPT_SIGTERM_STEPS), "--fetch_steps", "1"))
+        term.wait_line(GPT_SIGTERM_AFTER, timeout=EXAMPLE_TIMEOUT)
+        term_rc = term.finish(signal.SIGTERM, timeout=EXAMPLE_TIMEOUT)
+        term_steps = sum(1 for ln in term.lines if ln.startswith("epoch 0 "
+                                                                 "step "))
+        if term_rc != 101 or not any(ln.startswith("preempted:")
+                                     for ln in term.lines):
+            raise AssertionError("gpt_distill under SIGTERM exited %s: %s\n"
+                                 "%s" % (term_rc, term.lines[-5:],
+                                         term.tail()))
+        by_path["example_gpt_distill_sigterm"] = child_launches(term)
+        mnist_out = final_json(mnist)
+        by_path["example_mnist_distill"] = child_launches(mnist)
+        for child, path in ((gpt_t, "example_gpt_teacher"),
+                            (res_t, "example_resnet_teacher")):
+            if child.finish(signal.SIGTERM) != 0:
+                raise AssertionError("%s exited %s:\n%s"
+                                     % (child.name, child.proc.returncode,
+                                        child.tail()))
+            by_path[path] = child_launches(child)
+    finally:
+        for child in children:
+            child.reap()
+    examples_s = time.monotonic() - t0
+    # gpt_distill's student and the gpt teacher CLI: 2 layers, d 64 over 4
+    # heads (head_dim 16), seq 16; the student in f32, the teacher in bf16
+    ex_args = gpt_distill.parse_args([])
+
+    def student(steps):
+        return lm_step_launches(torch.float32, EX_HEAD_DIM, ex_args.seq_len,
+                                EX_LAYERS, steps)
+
+    want = student(ex_args.steps_per_epoch * ex_args.epochs)
+    if by_path["example_gpt_distill"] != want:
+        raise AssertionError("gpt_distill launched %s, want %s"
+                             % (by_path["example_gpt_distill"], want))
+    # the step that sees the signal runs, then raises before it prints
+    if by_path["example_gpt_distill_sigterm"] not in (
+            student(term_steps), student(term_steps + 1)):
+        raise AssertionError("gpt_distill under SIGTERM launched %s after "
+                             "%d printed steps" % (
+                                 by_path["example_gpt_distill_sigterm"],
+                                 term_steps))
+    teacher_kernel = fa.kernel_for(torch.bfloat16, EX_HEAD_DIM)
+    if not forward_only(by_path["example_gpt_teacher"], teacher_kernel,
+                        EX_LAYERS):
+        raise AssertionError("the gpt teacher CLI launched %s"
+                             % by_path["example_gpt_teacher"])
+    for path in ("example_resnet_distill", "example_resnet_teacher",
+                 "example_mnist_distill"):
+        if any(by_path[path].values()):
+            raise AssertionError("%s launched flash kernels: %s"
+                                 % (path, by_path[path]))
+    res_args = resnet_distill.parse_args([])
+    for out, args, what in ((gpt_out, ex_args, "gpt_distill"),
+                            (res_out, res_args, "resnet_distill")):
+        if (out["steps"] != args.steps_per_epoch * args.epochs
+                or not np.isfinite(out["final_loss"])):
+            raise AssertionError("%s: %s" % (what, out))
+    if not (mnist_out["teacher_acc"] > MNIST_TEACHER_ACC
+            and mnist_out["student_acc"] > MNIST_STUDENT_ACC
+            and mnist_out["steps"] == MNIST_STEPS
+            and mnist_out["final_loss"] < MNIST_LOSS):
+        raise AssertionError("mnist_distill misses its rule: %s" % mnist_out)
+    log("distill examples: gpt_distill %s, resnet_distill %s, mnist_distill "
+        "%s (rule: teacher > %g, student > %g, %d steps, loss < %g); "
+        "gpt_distill SIGTERMed after %d printed steps -> exit 101; "
+        "subprocesses %.1f s in all [%s]"
+        % (json.dumps(gpt_out), json.dumps(res_out), json.dumps(mnist_out),
+           MNIST_TEACHER_ACC, MNIST_STUDENT_ACC, MNIST_STEPS, MNIST_LOSS,
+           term_steps, examples_s, gpu))
+    log("distill examples: flash launches %s [%s]"
+        % (json.dumps(by_path), gpu))
+
+    fa.reset_launches()
+    bench_out = distill_bench.run(model="gpt", device="cuda")
+    by_path["distill_bench_gpt"] = dict(fa.flash_attention.kernel_launches)
+    if not bench_out["identical_ok"]:
+        raise AssertionError("distill_bench: serial and pipelined "
+                             "predictions differ: %s" % bench_out)
+    # distill_bench's gpt_teacher: the same widths, seq 32
+    if not forward_only(by_path["distill_bench_gpt"], teacher_kernel,
+                        EX_LAYERS):
+        raise AssertionError("distill_bench launched %s"
+                             % by_path["distill_bench_gpt"])
+    qps = distill_qps.run()
+    if qps["batches"] != 100 or not qps["samples_per_sec"] > 0:
+        raise AssertionError("distill_qps: %s" % qps)
+    log("distill examples: distill_bench %s [%s]" % (json.dumps(bench_out),
+                                                     gpu))
+    log("distill examples: distill_qps %s [%s]" % (json.dumps(qps), gpu))
+    return by_path
+
+
+def serve_bench_phase(gpu):
+    """Phase 10: tools/serve_bench's micro serve arc and decode arc, the
+    decode arc's models and KV caches on the card. Returns the flash
+    launches of both."""
+    from edl_tpu_torch.robustness import faults
+    from edl_tpu_torch.serve.admission import DECODE_SHED_REASONS
+    from edl_tpu_torch.tools import serve_bench
+
+    by_path = {}
+    workers = os.environ.get("EDL_TPU_RPC_WORKERS")
+    fa.reset_launches()
+    out = serve_bench.run("micro", seed=SERVE_SEED)
+    by_path["serve_bench"] = dict(fa.flash_attention.kernel_launches)
+    # tests/test_bench_guard.py's test_serve_bench_micro_schema
+    gates = {
+        "sent and served": out["sent"] > 0 and out["ok"] > 0,
+        "typed sheds only": (out["shed"]["total"] > 0
+                             and out["shed"]["with_retry_after_hint"] > 0
+                             and sum(out["shed"]["by_reason"].values())
+                             == out["shed"]["total"]
+                             and out["timeouts"] == 0
+                             and out["untyped_errors"] == 0),
+        "zero stranded": (out["stranded"] == 0
+                          and out["drain"]["zero_stranded"] is True),
+        "scale-out and scale-in": (out["scaler"]["scale_out"] >= 1
+                                   and out["scaler"]["scale_in"] >= 1),
+        "drain fault fired": out["faults_fired"].get("serve.drain", 0) >= 1,
+        "dry-replay parity": (out["dry_parity_ok"] is True
+                              and out["live_action_stream"]
+                              == out["dry_action_stream"]),
+        "stats under overload": (out["stats_rpc_ms"]["p99"] is not None
+                                 and out["stats_rpc_ms"]["p99"]
+                                 < out["latency_ms"]["p99"]),
+        "environment and fault plane restored": (
+            os.environ.get("EDL_TPU_RPC_WORKERS") == workers
+            and faults.PLANE is None),
+        "no flash kernel": not any(by_path["serve_bench"].values()),
+    }
+    failed = [k for k, ok in gates.items() if not ok]
+    log("serve_bench: run('micro'): sent %d, ok %d, goodput %s rps, shed %s "
+        "(%s), stranded %d, scaler %d out / %d in, latency %s ms, stats RPC "
+        "%s ms, wall %.1f s; gates failed: %s [%s]"
+        % (out["sent"], out["ok"], out["goodput_rps"], out["shed"]["total"],
+           out["shed"]["by_reason"], out["stranded"],
+           out["scaler"]["scale_out"], out["scaler"]["scale_in"],
+           out["latency_ms"], out["stats_rpc_ms"], out["wall_s"], failed,
+           gpu))
+    if failed:
+        raise AssertionError("serve_bench run('micro') fails %s: %s"
+                             % (failed, json.dumps(out)))
+
+    fa.reset_launches()
+    dec = serve_bench.run_decode("micro", seed=SERVE_SEED, device="cuda")
+    by_path["serve_decode"] = dict(fa.flash_attention.kernel_launches)
+    par, sc, pfx, ch = (dec["parity"], dec["scale_out"], dec["prefix"],
+                        dec["chunked"])
+    gates = {
+        "serial tokens == generate": par["serial_vs_generate_ok"],
+        "batched tokens == generate": par["cb_vs_generate_ok"],
+        "int8 tokens == generate": par["int8_tokens_match"],
+        "int8 logits": dec["quant"]["int8_logits_rel_err"] < INT8_BENCH_REL,
+        "int8 bytes": dec["quant"]["int8_bytes_ratio"] < INT8_BENCH_BYTES,
+        "one step shape": dec["compile"]["step_traces"] == 1,
+        "every shed reason": (dec["shed"]["reasons_covered"]
+                              == sorted(DECODE_SHED_REASONS)),
+        "shed arcs strand none": dec["shed"]["stranded"] == 0,
+        "journaled scale-out, none stranded": (
+            sc["scale_out"] >= 1 and sc["journaled"] >= 1
+            and sc["zero_stranded"]),
+        "prefix parity": pfx["parity_ok"],
+        "prefix accounting exact": pfx["accounting_exact"],
+        "chunked: no monolithic prefill": ch["prefill_traces"] == 0,
+        "chunked: one step shape": ch["step_traces"] == 1,
+        "ffma alone": by_path["serve_decode"] == only(
+            "ffma", by_path["serve_decode"]["ffma"]),
+    }
+    failed = [k for k, ok in gates.items() if not ok]
+    log("serve_bench: run_decode('micro') on the card: tokens/s serial %s, "
+        "batched %s, throughput.speedup %s (reference gate 1.5); "
+        "prefix.ttft_speedup %s (cold %s / reuse %s ms; gate 1.5); chunked "
+        "ITL p99 %s vs allowance 2 x %s (within: %s), monolithic %s "
+        "(exceeds: %s); TTFT %s; int8 %s; shed %s; scale-out %s; flash %s; "
+        "wall %.1f s; _decode_healthy: %s; gates failed: %s [%s]"
+        % (dec["throughput"]["serial_tokens_per_s"],
+           dec["throughput"]["cb_tokens_per_s"],
+           dec["throughput"]["speedup"], pfx["ttft_speedup"],
+           pfx["cold_ttft_ms_p50"], pfx["reuse_ttft_ms_p50"],
+           ch["chunked_itl_p99"], ch["baseline_itl_allowance"],
+           ch["chunked_within_2x"], ch["monolithic_itl_p99"],
+           ch["monolithic_exceeds_2x"], dec["latency_ms"], dec["quant"],
+           dec["shed"]["by_reason"], sc, by_path["serve_decode"],
+           dec["wall_s"], serve_bench._decode_healthy(dec), failed, gpu))
+    log("serve_bench: decode_bench %s [%s]" % (json.dumps(dec), gpu))
+    if failed:
+        raise AssertionError("serve_bench run_decode('micro') fails %s"
+                             % failed)
+    return by_path
+
+
+def run_phase(name, fn, *args):
+    """``fn(*args)``, its wall seconds logged."""
+    t0 = time.monotonic()
+    out = fn(*args)
+    log("phase %s: %.1f s" % (name, time.monotonic() - t0))
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
     gpu = card()
     log("device: %s [%s]" % (torch.cuda.get_device_name(0), gpu))
-    build(gpu)
-    kernel_rows = kernel_phase(gpu)
-    bwd_rows = bwd_phase(gpu)
-    by_path = {"predict": slice_phase(gpu)}
-    by_path.update(decode_phase(gpu))
-    by_path.update(train_phase(gpu))
-    by_path.update(resnet_phase(gpu))
-    by_path.update(elastic_phase(gpu))
+    t0 = time.monotonic()
+    run_phase("build", build, gpu)
+    kernel_rows = run_phase("kernels", kernel_phase, gpu)
+    bwd_rows = run_phase("backward", bwd_phase, gpu)
+    by_path = {"predict": run_phase("slice", slice_phase, gpu)}
+    for name, fn in (("decode", decode_phase), ("train", train_phase),
+                     ("resnet", resnet_phase), ("elastic", elastic_phase),
+                     ("distill", distill_phase),
+                     ("distill examples", distill_examples_phase),
+                     ("serve_bench", serve_bench_phase)):
+        by_path.update(run_phase(name, fn, gpu))
+    log("all phases: %.1f s" % (time.monotonic() - t0))
     repo = os.path.dirname(os.path.abspath(__file__))
     # each kernel's numbers at its main path's shape: sm90 at the served
     # predict (bf16 causal, b4); tf32x3 at lm_teacher's longest prefill,
